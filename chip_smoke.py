@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (``takzero_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
@@ -8,28 +8,46 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions;
 2. the build of every kernel from ``takzero_torch/csrc`` (seconds);
-3. kernel A (exact unsorted top-k) against ``topk_plain`` at the main
-   path's f32[128, 9036], k=256, on masked logits of random 6x6 positions,
-   all-tie rows, rows with fewer than 256 legal entries and +-inf rows:
-   values and indices must match exactly;
-4. kernel B (SimHash pack) against ``simhash_plain`` at 26 and 32 bits:
-   every bit whose float64 dot satisfies |dot| > 1e-4 must match;
-5. a small reference check: the 3x3 move program (dummy evaluator) and a
-   small float32 network evaluation on the card against the same on the
-   CPU, the path the CPU tests hold against the JAX package;
+3. kernel A (exact unsorted top-k) against ``topk_plain``: at the main
+   path's f32[128, 9036], k=256, on masked logits of random 6x6 positions
+   (timed: what the search's expansion gives the kernel), the same with
+   special rows mixed in (all ties, +-inf, unmasked), then on adversarial
+   rows at A=9036 and A=24843 with k=1, 256 and A: the threshold at the
+   mask value with thousands of ties, a threshold bin of many distinct
+   keys, +-inf, mixed +-0.0, all-equal rows.  The kernel's device time on
+   the special and the adversarial rows (A=9036, k=256) is logged too; a
+   launch takes as long as its slowest row.  Values (bit for bit) and
+   indices must match exactly;
+4. kernel B (SimHash pack) against ``simhash_plain``: the main path's
+   planes at 26 and 32 bits (timed), 1 bit, B=1, and B and In that are
+   not multiples of the kernel's tiles.  Every bit whose float64 dot
+   satisfies |dot| > 1e-4 must match, and two launches must give
+   identical words;
+5. a small reference check: the 3x3 move program (dummy evaluator), the
+   small network in float32 and in bf16 on the card against the same on
+   the CPU, and one bf16 convolution at the flagship width against
+   float64 (the convolutions' float32 accumulation);
 6. the main path: ``takzero_torch.bench`` at the flagship configuration
    (6x6, 16x256 bf16 net, SimHash 2^26, batch 128, k=64, budget 768,
    C=256, tree reuse), one warm-up move and two timed moves.  Both kernels'
    launch counters are set to 0 before and must read (budget+1) per move
    after; chosen actions must be legal and tree values finite;
 7. a ``kernels`` JSON line: each kernel with what it replaces, its launches
-   on the main path, its error against the plain version, its time, the
-   plain version's time, its bound and the library call's time.
+   on the main path, its error against the plain version, its device time
+   (``ms``), its call time (``call_ms``), the plain version's and the
+   library call's device times, and its bound.
+
+Device time per call: 50 calls of the wrapper captured in one CUDA graph,
+the graph replayed 20 times between two CUDA events (the profiler's summed
+kernel time if capture fails; the phase line says which).  Call time per
+call: 200 back-to-back calls of the wrapper after 20 warm-up calls, between
+two CUDA events, which is what the main path pays with the host in the
+loop.  ``--kernels-only`` stops after phase 4 (a short call, or a checkout
+of an earlier design of the kernels).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises,
 so the script exits non-zero and prints no such line; without a CUDA card
-it exits with 1 at once.  Kernel times are CUDA-event means over 200
-launches after 20 warm-up launches.
+it exits with 1 at once.
 """
 
 from __future__ import annotations
@@ -59,7 +77,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+def call_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Mean time per call of back-to-back calls, host cost included."""
     import torch
 
     for _ in range(warmup):
@@ -72,6 +91,55 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiler_ms(fn, calls: int = 50) -> float:
+    """Summed device time of the kernels of one call, from the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / calls / 1e3
+
+
+def device_ms(fn, calls: int = 50, replays: int = 20) -> tuple[float, str]:
+    """Device time per call: ``calls`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events.  Returns (ms, method)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        return profiler_ms(fn), f"profiler ({type(exc).__name__}: {str(exc)[:80]})"
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    return ms, "graph"
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -96,6 +164,44 @@ def random_positions(eng, batch: int, plies: int, gen, dev):
     return envs
 
 
+def adversarial_rows(a: int, gen, dev):
+    """f32[128, a] in eight groups of 16 rows, each hard for a radix select."""
+    import torch
+
+    x = torch.randn(128, a, generator=gen, device=dev)
+    rand = lambda: torch.rand(16, a, generator=gen, device=dev)  # noqa: E731
+    g = [slice(16 * i, 16 * (i + 1)) for i in range(8)]
+    x[g[1]] = torch.randint(0, 4, (16, a), generator=gen, device=dev).float()  # integer ties
+    x[g[2]] = torch.where(rand() < 100 / a, x[g[2]], NEG)  # threshold at NEG, thousands of ties
+    x[g[3]] = torch.where(rand() < 600 / a, x[g[3]], NEG)  # more than 256 legal
+    x[g[4]] = 1.0 + rand() * 2.0 ** -12  # one 11-bit bin of many distinct keys
+    x[g[5]] = torch.where(rand() < 0.5, -torch.inf, x[g[5]])
+    x[g[5], ::97] = torch.inf
+    choice = torch.tensor([1.0, 0.0, -0.0, -1.0], device=dev)
+    u = rand()
+    pick = torch.where(u < 1 / 64, 0, torch.where(u < 0.5, 1, torch.where(u < 0.9, 2, 3)))
+    x[g[6]] = choice[pick]  # threshold at zero, +0.0 and -0.0 mixed
+    x[g[7]] = torch.where(rand() < 0.3, 1.0, NEG)  # the dummy evaluator: ties under a mask
+    x[g[7]][:4] = 1.0
+    return x.contiguous()
+
+
+def expect_topk_equal(x, k: int, what: str) -> None:
+    import torch
+
+    from takzero_torch.ops import topk
+
+    vals, idx = topk.exact_top_k_unsorted(x, k)
+    pv, pi = topk.topk_plain(x, k)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, pi):
+        bad = (idx != pi).any(-1).nonzero()[:, 0].tolist()
+        raise AssertionError(f"top-k kernel ({what}): indices differ from plain in rows {bad}")
+    if not torch.equal(vals.view(torch.int32), pv.view(torch.int32)):
+        bad = (vals.view(torch.int32) != pv.view(torch.int32)).any(-1).nonzero()[:, 0].tolist()
+        raise AssertionError(f"top-k kernel ({what}): value bits differ from plain in rows {bad}")
+
+
 def check_topk(eng, envs, gen, dev) -> dict:
     import torch
 
@@ -104,7 +210,8 @@ def check_topk(eng, envs, gen, dev) -> dict:
     legal = eng.legal_mask(envs)
     b, a = legal.shape
     logits = torch.randn(b, a, generator=gen, device=dev)
-    x = torch.where(legal, logits, NEG)
+    main_rows = torch.where(legal, logits, NEG).contiguous()  # what apply_eval gives the kernel
+    x = main_rows.clone()
     x[96:112] = torch.where(legal[96:112], 1.0, NEG)  # the dummy evaluator: all ties
     x[112:116] = -torch.inf  # fewer than k finite entries
     x[112:116, 500:520] = 2.0
@@ -113,28 +220,64 @@ def check_topk(eng, envs, gen, dev) -> dict:
     x[124:128] = logits[124:128]  # more than k candidates, nothing masked
     x = x.contiguous()
     k = 256
-    vals, idx = topk.exact_top_k_unsorted(x, k)
-    pv, pi = topk.topk_plain(x, k)
-    torch.cuda.synchronize()
-    if not torch.equal(idx, pi):
-        bad = (idx != pi).any(-1).nonzero()[:, 0].tolist()
-        raise AssertionError(f"top-k kernel: indices differ from the plain version in rows {bad}")
-    if not torch.equal(vals, pv):
-        raise AssertionError("top-k kernel: values differ from the plain version")
-    err = torch.where(vals == pv, 0.0, (vals - pv).abs()).max().item()
-    few = int((legal.sum(-1) < k).sum())
+    expect_topk_equal(main_rows, k, "main-path rows")
+    expect_topk_equal(x, k, "main-path rows with special rows")
+    cases = []
+    for width in (9036, 24843):
+        rows = adversarial_rows(width, gen, dev)
+        for kk in (1, 256, width):
+            expect_topk_equal(rows, kk, f"adversarial A={width} k={kk}")
+            cases.append([width, kk])
+        if width == a:
+            adversarial_ms = device_ms(lambda: topk.exact_top_k_unsorted(rows, k))[0]
+    ms, how = device_ms(lambda: topk.exact_top_k_unsorted(main_rows, k))
+    plain, plain_how = device_ms(lambda: topk.topk_plain(main_rows, k))
+    lib, lib_how = device_ms(lambda: torch.topk(main_rows, k, sorted=False))
     out = dict(
-        shape=[b, a], k=k, rows_fewer_than_k_legal=few, max_abs_err=err,
-        kernel_ms=cuda_ms(lambda: topk.exact_top_k_unsorted(x, k)),
-        plain_ms=cuda_ms(lambda: topk.topk_plain(x, k)),
-        library_ms=cuda_ms(lambda: torch.topk(x, k, sorted=False)),
+        shape=[b, a], k=k, rows_fewer_than_k_legal=int((legal.sum(-1) < k).sum()),
+        adversarial_cases_a_k=cases, adversarial_rows_kernel_ms=adversarial_ms,
+        special_rows_kernel_ms=device_ms(lambda: topk.exact_top_k_unsorted(x, k))[0], max_abs_err=0.0,
+        kernel_ms=ms, call_ms=call_ms(lambda: topk.exact_top_k_unsorted(main_rows, k)),
+        plain_ms=plain, library_ms=lib, timing={"kernel": how, "plain": plain_how, "library": lib_how},
     )
     out["bound_ms"], out["bound_by"] = bound_ms(b * a * 4 + b * k * 8, b * a)
     log({"phase": "kernel A exact_top_k_unsorted", **out})
     return out
 
 
-def check_simhash(eng, envs, dev) -> dict:
+def expect_simhash_equal(x, m, what: str) -> float:
+    """Kernel vs plain on every bit whose float64 dot is clear of 0, and
+    two launches identical; returns the largest difference of sure bits."""
+    import torch
+
+    from takzero_torch.ops import simhash
+
+    got = simhash.simhash_pack(x, m)
+    again = simhash.simhash_pack(x, m)
+    want = simhash.simhash_plain(x, m)
+    bits = m.shape[1]
+    dots = x.double() @ m.double()
+    sure = ((dots.abs() > 1e-4).long() << torch.arange(bits, device=x.device)).sum(-1)
+    diff = int(((got & sure) != (want & sure)).sum())
+    if diff:
+        raise AssertionError(f"SimHash kernel ({what}): {diff} words differ from plain")
+    if got.dtype != torch.int64 or not torch.equal(got, again):
+        raise AssertionError(f"SimHash kernel ({what}): two launches gave different words")
+    if bool((got < 0).any()) or bool((got >= 2 ** bits).any()):
+        raise AssertionError(f"SimHash kernel ({what}): words outside [0, 2^{bits})")
+    return float(((got & sure) - (want & sure)).abs().max())
+
+
+def plane_like(b: int, inp: int, gen, dev):
+    import torch
+
+    x = (torch.rand(b, inp, generator=gen, device=dev) < 0.2).float()
+    tail = inp // 10
+    x[:, -tail:] = torch.rand(b, tail, generator=gen, device=dev)
+    return x.contiguous()
+
+
+def check_simhash(eng, envs, gen, dev) -> dict:
     import torch
 
     from takzero_torch.models.network import NetConfig, simhash_matrix
@@ -144,25 +287,26 @@ def check_simhash(eng, envs, dev) -> dict:
     planes = state_to_planes(eng, envs)
     planes[:, input_channels(eng.n) - 2] = 0.0
     x = planes.reshape(planes.shape[0], -1).contiguous()
+    cases = ((128, 1296, 1), (1, 1296, 32), (37, 1001, 26), (5, 20, 7), (128, 2816, 32))
+    for b, inp, bits in cases:
+        xs = plane_like(b, inp, gen, dev)
+        m = torch.randn(inp, bits, generator=gen, device=dev)
+        expect_simhash_equal(xs, m, f"B={b} In={inp} bits={bits}")
     result = None
     for bits in (26, 32):
         m = simhash_matrix(NetConfig(n=6, hash_bits=bits), seed=0).to(dev)
-        got = simhash.simhash_pack(x, m)
-        want = simhash.simhash_plain(x, m)
-        dots = x.double() @ m.double()
-        sure = ((dots.abs() > 1e-4).long() << torch.arange(bits, device=dev)).sum(-1)
-        diff = ((got & sure) != (want & sure)).sum().item()
-        if diff:
-            raise AssertionError(f"SimHash kernel ({bits} bits): {diff} words differ from plain")
+        err = expect_simhash_equal(x, m, f"main-path planes, {bits} bits")
         b, inp = x.shape
+        ms, how = device_ms(lambda: simhash.simhash_pack(x, m))
+        plain, plain_how = device_ms(lambda: simhash.simhash_plain(x, m))
         out = dict(
-            shape=[b, inp, bits], max_abs_err=float(((got & sure) - (want & sure)).abs().max()),
-            near_zero_bits=int((dots.abs() <= 1e-4).sum()),
-            kernel_ms=cuda_ms(lambda: simhash.simhash_pack(x, m)),
-            plain_ms=cuda_ms(lambda: simhash.simhash_plain(x, m)),
-            library_ms=None,
+            shape=[b, inp, bits], max_abs_err=err,
+            near_zero_bits=int(((x.double() @ m.double()).abs() <= 1e-4).sum()),
+            kernel_ms=ms, call_ms=call_ms(lambda: simhash.simhash_pack(x, m)),
+            plain_ms=plain, library_ms=None, timing={"kernel": how, "plain": plain_how},
+            cases_b_in_bits=cases,
         )
-        out["bound_ms"], out["bound_by"] = bound_ms(b * inp * 4 + inp * bits * 4 + b * 4, 2 * b * inp * bits)
+        out["bound_ms"], out["bound_by"] = bound_ms(b * inp * 4 + inp * bits * 4 + b * 8, 2 * b * inp * bits)
         log({"phase": f"kernel B simhash_pack, {bits} bits", **out})
         if bits == 26:  # the main path's width
             result = out
@@ -177,6 +321,7 @@ def check_small_reference(dev) -> None:
 
     from takzero_torch.config import NET_PRESETS, selfplay_preset
     from takzero_torch.models.agent import make_net_evaluate, new_agent
+    from takzero_torch.models.network import _conv2d, conv_precision
     from takzero_torch.search.agents import dummy_evaluator
     from takzero_torch.selfplay import SelfplayEngine, make_draws
     from takzero_torch.tak.engine import engine
@@ -204,15 +349,46 @@ def check_small_reference(dev) -> None:
     floats_gpu = runs["cuda"][..., 4:5 + c].view(torch.float32)
     torch.testing.assert_close(floats_gpu, floats, rtol=1e-5, atol=1e-5)
 
-    cfg = dataclasses.replace(NET_PRESETS["tiny3"], compute_dtype=torch.float32)
-    agent_cpu = new_agent(cfg, seed=2, device="cpu")
-    agent_gpu = new_agent(cfg, seed=2, device=dev)
     envs = random_positions(eng, 64, 8, torch.Generator().manual_seed(4), "cpu")
-    want = make_net_evaluate(cfg, eng, device="cpu")(agent_cpu, envs)
-    got = make_net_evaluate(cfg, eng, device=dev)(agent_gpu, envs.map(lambda t: t.to(dev)))
-    for g, w, what in zip(got, want, ("policy", "value", "variance")):
-        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4, msg=lambda m: f"{what}: {m}")
-    log({"phase": "small reference", "move_program_3x3": "card == cpu", "network_f32": "within 1e-4"})
+    report = {"phase": "small reference", "move_program_3x3": "card == cpu"}
+    # float32 within 1e-4 (summation order); bf16 within 1e-2, about two
+    # bf16 steps of these outputs: both sides accumulate exact products in
+    # float32, and only a float32 sum that lands within rounding of a bf16
+    # boundary can round the other way on the other side.
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        cfg = dataclasses.replace(NET_PRESETS["tiny3"], compute_dtype=dtype)
+        agent_cpu = new_agent(cfg, seed=2, device="cpu")
+        agent_gpu = new_agent(cfg, seed=2, device=dev)
+        want = make_net_evaluate(cfg, eng, device="cpu")(agent_cpu, envs)
+        got = make_net_evaluate(cfg, eng, device=dev)(agent_gpu, envs.map(lambda t: t.to(dev)))
+        name = str(dtype).split(".")[-1]
+        for g, w, what in zip(got, want, ("policy", "value", "variance")):
+            torch.testing.assert_close(g.cpu(), w, rtol=tol, atol=tol, msg=lambda m: f"{name} {what}: {m}")
+        agree = float((got[0].cpu().argmax(-1) == want[0].argmax(-1)).float().mean())
+        if agree < 0.95:
+            raise AssertionError(f"{name} network: policy argmax agrees on {agree:.3f} of positions")
+        report[f"network_{name}"] = {
+            "tolerance": tol, "policy_argmax_agreement": agree,
+            "max_abs_diff": max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want)),
+        }
+
+    # One bf16 convolution at the flagship width against float64: the
+    # products of bf16 values are exact in TF32 and float32, so the card's
+    # error must stay at float32 summation level (a Winograd or FFT
+    # algorithm would not).
+    gen = torch.Generator().manual_seed(5)
+    xc = torch.randn(32, 256, 6, 6, generator=gen).to(torch.bfloat16)
+    wc = (torch.randn(256, 256, 3, 3, generator=gen) / 48).to(torch.bfloat16)
+    bias = torch.zeros(256)
+    with conv_precision(torch.bfloat16):
+        got = _conv2d(xc.to(dev), wc.to(dev), bias.to(dev), torch.bfloat16).cpu().double()
+    ref = torch.nn.functional.conv2d(xc.double(), wc.double(), padding=1)
+    scale = torch.nn.functional.conv2d(xc.double().abs(), wc.double().abs(), padding=1)
+    rel = float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
+    report["conv_bf16_vs_float64"] = {"max_err_over_sum_abs_products": rel, "limit": 1e-5}
+    log(report)
+    if rel > 1e-5:
+        raise AssertionError(f"bf16 convolution on the card: error {rel:.3g} of sum|x*w| > 1e-5")
 
 
 def run_main_path(dev) -> tuple[dict, object]:
@@ -271,6 +447,7 @@ def main() -> int:
     if not (Path(__file__).resolve().parent / "takzero_torch").is_dir():
         print("chip_smoke: run from the repository root (takzero_torch/ not found)", file=sys.stderr)
         return 1
+    kernels_only = "--kernels-only" in sys.argv[1:]
     from takzero_torch.ops import _build
     from takzero_torch.tak.engine import engine
 
@@ -291,7 +468,10 @@ def main() -> int:
     eng = engine(6, half_komi=4)
     envs = random_positions(eng, 128, 40, gen, dev)
     topk_out = check_topk(eng, envs, gen, dev)
-    simhash_out = check_simhash(eng, envs, dev)
+    simhash_out = check_simhash(eng, envs, gen, dev)
+    if kernels_only:
+        log({"phase": "done", "seconds": time.perf_counter() - t_start, "kernels_only": True})
+        return 0
     check_small_reference(dev)
     launches, _ = run_main_path(dev)
 
@@ -304,8 +484,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "checked": True, "launches": launches[name], "max_abs_err": out["max_abs_err"],
-            "ms": out["kernel_ms"], "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
-            "bound_by": out["bound_by"], "library_ms": out["library_ms"],
+            "ms": out["kernel_ms"], "call_ms": out["call_ms"], "plain_ms": out["plain_ms"],
+            "bound_ms": out["bound_ms"], "bound_by": out["bound_by"], "library_ms": out["library_ms"],
         })
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())

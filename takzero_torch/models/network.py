@@ -7,17 +7,17 @@ flatten), and value/UBE heads conv1x1 -> relu -> flatten -> dense(1)
 (tanh on the value).  Only inference is ported in this slice: the modules
 run in eval mode (running BatchNorm statistics).
 
-Numerics of the folded path follow ``apply_folded``: convolutions run in
-``compute_dtype`` without bias, the f32 bias (and the residual) are added
-in float32, and the result is cast back to ``compute_dtype`` where JAX
-casts.  The JAX path keeps the bf16 convolution's f32 accumulator; a
-torch bf16 convolution rounds its output to bf16 before the bias add, so
-bf16 outputs differ from JAX's by a few bf16 ulps (the tests state the
-tolerance).  In float32 the two agree to float rounding.
+Numerics of the folded path follow ``apply_folded``: each convolution
+takes its operands rounded to ``compute_dtype``, multiplies and accumulates
+them in float32 (JAX's ``preferred_element_type=float32``), adds the f32
+bias (and the residual) to that float32 result, and the activation is cast
+back to ``compute_dtype`` where JAX casts: one rounding per layer, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -172,28 +172,51 @@ def fold_inference_params(cfg: NetConfig, net: TakNet) -> dict:
 
 
 def _conv2d(x, kernel, bias, dtype):
-    """conv in ``dtype`` (no bias), then + f32 bias in float32."""
+    """Convolution of the operands rounded to ``dtype``, multiplied and
+    accumulated in float32, plus the f32 bias in float32."""
     pad = kernel.shape[-1] // 2
-    y = F.conv2d(x.to(dtype), kernel.to(dtype), padding=pad)
-    return y.float() + bias.float()[None, :, None, None]
+    y = F.conv2d(x.to(dtype).float(), kernel.to(dtype).float(), padding=pad)
+    return y + bias.float()[None, :, None, None]
+
+
+@contextlib.contextmanager
+def conv_precision(dtype):
+    """cuDNN flags for the convolutions of ``_conv2d`` in ``dtype``.
+
+    For a 16-bit ``dtype``, cuDNN may use TF32 tensor cores inside this
+    context only (the other flags stay as they are): every bf16 or fp16
+    value is exactly a TF32 value, so each product is exact and the sums
+    stay in float32.  That holds for a direct or implicit-GEMM algorithm; a
+    Winograd or FFT algorithm transforms the operands first and would not
+    keep it (``chip_smoke.py`` holds a card convolution against float64 and
+    the card's bf16 network against the CPU's).  A float32 ``dtype`` keeps
+    the global flag.
+    """
+    cudnn = torch.backends.cudnn
+    exact_tf32 = dtype in (torch.bfloat16, torch.float16)
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic,
+                     allow_tf32=exact_tf32 or cudnn.allow_tf32):
+        yield
 
 
 @torch.no_grad()
 def apply_folded(cfg: NetConfig, fw: dict, planes: torch.Tensor):
     """Inference on folded weights: (policy f32[B,A], value f32[B], ube f32[B])."""
     dt = cfg.compute_dtype
-    x = F.relu(_conv2d(planes, *fw["stem"], dt)).to(dt)
-    for (k1, b1), (k2, b2) in fw["blocks"]:
-        y = F.relu(_conv2d(x, k1, b1, dt)).to(dt)
-        y = _conv2d(y, k2, b2, dt)
-        x = F.relu(x.float() + y).to(dt)
-    core = x
-    policy = _conv2d(core, *fw["policy"], dt).flatten(1)
+    with conv_precision(dt):
+        x = F.relu(_conv2d(planes, *fw["stem"], dt)).to(dt)
+        for (k1, b1), (k2, b2) in fw["blocks"]:
+            y = F.relu(_conv2d(x, k1, b1, dt)).to(dt)
+            y = _conv2d(y, k2, b2, dt)
+            x = F.relu(x.float() + y).to(dt)
+        core = x
+        policy = _conv2d(core, *fw["policy"], dt).flatten(1)
 
-    def scalar_head(w, tanh):
-        ck, cb, dk, db = w
-        h = F.relu(_conv2d(core, ck, cb, dt)).flatten(1)
-        out = (h @ dk.float().t() + db.float())[:, 0]
-        return torch.tanh(out) if tanh else out
+        def scalar_head(w, tanh):
+            ck, cb, dk, db = w
+            h = F.relu(_conv2d(core, ck, cb, dt)).flatten(1)
+            out = (h @ dk.float().t() + db.float())[:, 0]
+            return torch.tanh(out) if tanh else out
 
-    return policy, scalar_head(fw["value"], True), scalar_head(fw["ube"], False)
+        return policy, scalar_head(fw["value"], True), scalar_head(fw["ube"], False)

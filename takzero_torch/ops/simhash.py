@@ -7,14 +7,20 @@ bit i of the word is set iff ``(x @ M)[:, i] >= 0``, with the dot product
 in full float32.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``takzero_torch/csrc/simhash.cu`` (one warp per row, lane b computes bit b
-with float32 FMAs, ``__ballot_sync`` packs the word); on a CPU tensor it
-runs :func:`simhash_plain`.  At the main path's x f32[128, 1296] and
-M f32[1296, 26] the kernel must move about 0.8 MB for 8.6 MFLOP, so it is
-memory-bound: about 0.24 us at the H100's 3.35 TB/s.
+``takzero_torch/csrc/simhash.cu``; on a CPU tensor it runs
+:func:`simhash_plain`.  The kernel splits the input dimension over a
+cluster of 8 blocks that share a tile of 8 rows (128 blocks at the main
+path's shape), stages x and M in shared memory with ``cp.async``, computes
+the partial dots with float32 FMAs, sums them through distributed shared
+memory in the fixed order of cluster rank (the same input gives the same
+word on every run) and packs each word with one ballot.  At the main
+path's x f32[128, 1296] and M f32[1296, 26] it must move about 0.8 MB for
+8.6 MFLOP, so it is memory-bound: about 0.24 us at the H100's 3.35 TB/s.
+A block's slice of M and x must fit in shared memory, which takes In up to
+about 11,000 (8x8 needs 2,816).
 
 Words are returned as int64 holding the uint32 value (torch has no uint32
-shifts); the kernel itself stores the int32 bit pattern.
+shifts); the kernel writes them so.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ def simhash_pack(x: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
     bits = matrix.shape[1]
     if not 0 < bits <= 32:
         raise ValueError(f"simhash_pack: bits must be in [1, 32], got {bits}")
-    out = torch.empty((b,), dtype=torch.int32, device=x.device)
+    out = torch.empty((b,), dtype=torch.int64, device=x.device)
     if b:
         with torch.cuda.device(x.device):
             err = _build.lib("simhash").simhash_launch(
@@ -67,7 +73,7 @@ def simhash_pack(x: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
             )
         _build.check(err, "simhash")
         simhash_pack.launches += 1
-    return out.to(torch.int64) & 0xFFFFFFFF
+    return out
 
 
 simhash_pack.launches = 0

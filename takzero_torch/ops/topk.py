@@ -7,15 +7,19 @@ the k largest values per row, ties toward the lower index, output ordered
 by ascending index, values returned exactly (±inf included).
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``takzero_torch/csrc/topk.cu`` (one block per row, the row held in shared
-memory, a 4-pass 8-bit radix select of the threshold, block scans that rank
-the ties and place the outputs); on a CPU tensor it runs :func:`topk_plain`.
-The kernel is memory-bound: at the main path's f32[128, 9036], k=256 it
-must move 4.9 MB, about 1.5 us at the H100's 3.35 TB/s.
+``takzero_torch/csrc/topk.cu``; on a CPU tensor it runs :func:`topk_plain`.
+The kernel gives each row a 1024-thread block: it reads the row once into
+shared memory, builds an 11-bit histogram of the keys' top digit in one
+sweep, compacts the threshold bin's keys and stops there when they are all
+equal (the main path's masked rows, whose threshold is the mask value),
+else resolves the two remaining digits over those candidates alone, and
+places the outputs in index order with one block-wide scan.  It is
+memory-bound: at the main path's f32[128, 9036], k=256 it must move 4.9 MB,
+about 1.5 us at the H100's 3.35 TB/s.
 
-The row must fit in shared memory: 6x6 (A=9036, 36 KB) and 7x7 (A=24843,
-97 KB, through the dynamic shared-memory attribute) do; 8x8 (A=65216,
-255 KB) does not, and the wrapper raises.
+The row and its candidates must fit in shared memory (8 bytes per entry):
+6x6 (A=9036, 72 KB) and 7x7 (A=24843, 194 KB) do; 8x8 (A=65216, 510 KB)
+does not, and the wrapper raises.
 """
 
 from __future__ import annotations
@@ -24,9 +28,9 @@ import torch
 
 from . import _build
 
-# Largest dynamic shared memory a block may use on Hopper (232,448 B),
-# less the kernel's static histogram and scan scratch.
-_SMEM_LIMIT = 232_448 - 2_048
+# Largest shared memory a block may use on Hopper (232,448 B), less the
+# kernel's static histogram and scan scratch.
+_SMEM_LIMIT = 232_448 - 9_216
 
 
 def topk_plain(x: torch.Tensor, k: int):
@@ -58,10 +62,10 @@ def exact_top_k_unsorted(x: torch.Tensor, k: int):
     b, a = x.shape
     if not 0 < k <= a:
         raise ValueError(f"exact_top_k_unsorted: need 0 < k <= A, got k={k}, A={a}")
-    if 4 * a > _SMEM_LIMIT:
+    if 8 * a > _SMEM_LIMIT:
         raise ValueError(
-            f"exact_top_k_unsorted: a row of A={a} floats does not fit in "
-            f"shared memory ({4 * a} > {_SMEM_LIMIT} bytes)"
+            f"exact_top_k_unsorted: a row of A={a} floats and its candidates do "
+            f"not fit in shared memory ({8 * a} > {_SMEM_LIMIT} bytes)"
         )
     vals = torch.empty((b, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, k), dtype=torch.int32, device=x.device)

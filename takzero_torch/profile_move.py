@@ -14,8 +14,10 @@ warm-up move, then one move under
 the move's wall seconds under the profiler, the summed time of its device
 events (kernels and copies), the device's idle share (1 - device time /
 wall time), the number of device events and of host syncs (``aten::item``
-and ``aten::is_nonzero`` calls), and the operators that take the most host
-time and the kernels that take the most device time.  The full operator
+and ``aten::is_nonzero`` calls), the device time of the network's
+convolutions (every kernel under ``aten::convolution``, layout transposes
+included), and the operators that take the most host time and the kernels
+that take the most device time.  The full operator
 table goes to ``--out``.
 """
 
@@ -47,6 +49,10 @@ def _device_us(row) -> float:
     return getattr(row, "self_device_time_total", getattr(row, "self_cuda_time_total", 0.0))
 
 
+def _device_total_us(row) -> float:
+    return getattr(row, "device_time_total", getattr(row, "cuda_time_total", 0.0))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--budget", type=int, default=96)
@@ -73,6 +79,7 @@ def main() -> None:
     on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.time_range.elapsed_us() for e in on_device)
     syncs = sum(r.count for r in rows if r.key in ("aten::item", "aten::is_nonzero"))
+    conv_us = sum(_device_total_us(r) for r in rows if r.key == "aten::convolution")
     host_rows = [r for r in rows if r.device_type == DeviceType.CPU]
     device_rows = [r for r in rows if r.device_type == DeviceType.CUDA]
     out = Path(args.out)
@@ -87,6 +94,7 @@ def main() -> None:
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "device_events": len(on_device),
         "host_syncs": syncs,
+        "conv_device_ms": conv_us / 1e3,
         "top_by_host": _top(host_rows, lambda r: r.self_cpu_time_total),
         "top_by_device": _top(device_rows, _device_us),
         "table": str(out),

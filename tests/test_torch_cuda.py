@@ -42,17 +42,46 @@ def _topk_rows(rows: int, a: int, gen: torch.Generator) -> torch.Tensor:
     return x
 
 
-@pytest.mark.parametrize("a,k", [(9036, 256), (1030, 64), (300, 300)])
-def test_topk_kernel_matches_plain(cuda, a, k):
-    gen = torch.Generator().manual_seed(a + k)
-    x = _topk_rows(128, a, gen).to(cuda)
+def _adversarial_rows(a: int, gen: torch.Generator) -> torch.Tensor:
+    """Eight groups of 16 rows, each hard for a radix select."""
+    x = torch.randn(128, a, generator=gen)
+    rand = lambda: torch.rand(16, a, generator=gen)  # noqa: E731
+    g = [slice(16 * i, 16 * (i + 1)) for i in range(8)]
+    x[g[1]] = torch.randint(0, 4, (16, a), generator=gen).float()  # integer ties
+    x[g[2]] = torch.where(rand() < 100 / a, x[g[2]], NEG)  # threshold at NEG, thousands of ties
+    x[g[3]] = torch.where(rand() < 600 / a, x[g[3]], NEG)  # more than 256 legal
+    x[g[4]] = 1.0 + rand() * 2.0 ** -12  # one 11-bit bin of many distinct keys
+    x[g[5]] = torch.where(rand() < 0.5, -torch.inf, x[g[5]])
+    x[g[5], ::97] = torch.inf
+    u = rand()
+    pick = torch.where(u < 1 / 64, 0, torch.where(u < 0.5, 1, torch.where(u < 0.9, 2, 3)))
+    x[g[6]] = torch.tensor([1.0, 0.0, -0.0, -1.0])[pick]  # threshold at zero, +-0.0 mixed
+    x[g[7]] = torch.where(rand() < 0.3, 1.0, NEG)  # the dummy evaluator: ties under a mask
+    x[g[7]][:4] = 1.0
+    return x
+
+
+def _expect_topk_equal(x: torch.Tensor, k: int) -> None:
     before = topk.exact_top_k_unsorted.launches
     vals, idx = topk.exact_top_k_unsorted(x, k)
     torch.cuda.synchronize()
     assert topk.exact_top_k_unsorted.launches == before + 1
     pv, pi = topk.topk_plain(x, k)
     assert torch.equal(idx, pi)
-    assert torch.equal(vals, pv)
+    assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))  # -0.0 and +0.0 apart
+
+
+@pytest.mark.parametrize("a,k", [(9036, 256), (1030, 64), (300, 300)])
+def test_topk_kernel_matches_plain(cuda, a, k):
+    gen = torch.Generator().manual_seed(a + k)
+    _expect_topk_equal(_topk_rows(128, a, gen).to(cuda), k)
+
+
+@pytest.mark.parametrize("k", [1, 256, None])
+@pytest.mark.parametrize("a", [9036, 24843])
+def test_topk_kernel_adversarial_rows(cuda, a, k):
+    gen = torch.Generator().manual_seed(a)
+    _expect_topk_equal(_adversarial_rows(a, gen).to(cuda), a if k is None else k)
 
 
 def test_topk_rejects_rows_too_wide_for_shared_memory(cuda):
@@ -60,15 +89,37 @@ def test_topk_rejects_rows_too_wide_for_shared_memory(cuda):
         topk.exact_top_k_unsorted(torch.zeros(2, 65216, device=cuda), 256)
 
 
+def _expect_simhash_equal(x: torch.Tensor, m: torch.Tensor) -> None:
+    bits = m.shape[1]
+    before = simhash.simhash_pack.launches
+    got = simhash.simhash_pack(x, m)
+    again = simhash.simhash_pack(x, m)
+    assert simhash.simhash_pack.launches == before + 2
+    assert got.dtype == torch.int64 and torch.equal(got, again)
+    want = simhash.simhash_plain(x, m).cpu()
+    got = got.cpu()
+    dots = x.cpu().double() @ m.cpu().double()
+    sure = ((dots.abs() > 1e-4).long() << torch.arange(bits)).sum(-1)
+    np.testing.assert_array_equal((got & sure).numpy(), (want & sure).numpy())
+    assert int(got.min()) >= 0 and int(got.max()) < 2 ** bits
+
+
 @pytest.mark.parametrize("bits", [12, 26, 32])
 def test_simhash_kernel_matches_plain(cuda, bits):
     gen = torch.Generator().manual_seed(bits)
     x = (torch.rand(128, 1296, generator=gen) < 0.2).float()
     m = torch.randn(1296, bits, generator=gen)
-    before = simhash.simhash_pack.launches
-    got = simhash.simhash_pack(x.to(cuda), m.to(cuda)).cpu()
-    assert simhash.simhash_pack.launches == before + 1
-    want = simhash.simhash_plain(x.to(cuda), m.to(cuda)).cpu()
-    dots = x.double() @ m.double()
-    sure = ((dots.abs() > 1e-4).long() << torch.arange(bits)).sum(-1)
-    np.testing.assert_array_equal((got & sure).numpy(), (want & sure).numpy())
+    _expect_simhash_equal(x.to(cuda), m.to(cuda))
+
+
+@pytest.mark.parametrize(
+    "b,inp,bits",
+    [(128, 1296, 1), (1, 1296, 32), (37, 1001, 26), (5, 20, 7), (130, 2816, 32)],
+)
+def test_simhash_kernel_ragged_shapes(cuda, b, inp, bits):
+    """B and In that are not multiples of the kernel's tiles, B=1, 1 bit."""
+    gen = torch.Generator().manual_seed(b * inp + bits)
+    x = (torch.rand(b, inp, generator=gen) < 0.2).float()
+    x[:, -(inp // 10):] = torch.rand(b, inp // 10, generator=gen)
+    m = torch.randn(inp, bits, generator=gen)
+    _expect_simhash_equal(x.to(cuda), m.to(cuda))

@@ -42,6 +42,16 @@ def _rows(mode: str, rows: int, a: int, rng) -> np.ndarray:
             j = rng.choice(a, int(rng.integers(10, 120)), replace=False)
             x[i, j] = rng.standard_normal(len(j)).astype(np.float32)
         return x
+    if mode == "narrow":  # one 11-bit key bin holding many distinct keys
+        return (1.0 + rng.random((rows, a)) * 2.0**-12).astype(np.float32)
+    if mode == "zeros":  # the threshold at zero, +0.0 and -0.0 mixed
+        pick = rng.choice(4, (rows, a), p=[1 / 64, 0.5 - 1 / 64, 0.4, 0.1])
+        return np.array([1.0, 0.0, -0.0, -1.0], np.float32)[pick]
+    if mode == "inf":
+        x = rng.standard_normal((rows, a)).astype(np.float32)
+        x[rng.random((rows, a)) < 0.5] = -np.inf
+        x[:, ::97] = np.inf
+        return x
     if mode == "equal":
         # The dummy evaluator's rows: all ones, and ones under a legal mask.
         x = np.ones((rows, a), np.float32)
@@ -72,6 +82,19 @@ def test_topk_plain_matches_reference_at_main_path_width():
     rv, ri = exact_top_k_unsorted_reference(jnp.asarray(x), 256)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
     np.testing.assert_array_equal(vals.numpy(), np.asarray(rv))
+
+
+@pytest.mark.parametrize("k", [1, 64, 1030])
+@pytest.mark.parametrize("mode", ["narrow", "zeros", "inf", "masked"])
+def test_topk_plain_matches_reference_on_adversarial_rows(mode, k):
+    """The rows the card holds kernel A to (tests/test_torch_cuda.py), k=1
+    and k=A included; values compared bit for bit, so -0.0 stays -0.0."""
+    rng = np.random.default_rng([k, len(mode)])
+    x = _rows(mode, 4, 1030, rng)
+    vals, idx = port_topk.topk_plain(torch.from_numpy(x), k)
+    rv, ri = exact_top_k_unsorted_reference(jnp.asarray(x), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(vals.numpy().view(np.int32), np.asarray(rv).view(np.int32))
 
 
 def test_topk_signed_zeros_tie_as_in_the_reference():
@@ -111,7 +134,8 @@ def _simhash_case(b: int, inp: int, bits: int, planes: bool, seed: int):
 
 @pytest.mark.parametrize(
     "b,inp,bits,planes",
-    [(8, 96, 32, False), (128, 1296, 26, True), (128, 1296, 32, True), (64, 243, 12, False)],
+    [(8, 96, 32, False), (128, 1296, 26, True), (128, 1296, 32, True), (64, 243, 12, False),
+     (1, 1296, 32, True), (128, 1296, 1, True), (37, 1001, 26, True)],
 )
 def test_simhash_plain_matches_pallas(b, inp, bits, planes):
     x, m = _simhash_case(b, inp, bits, planes, seed=b + bits)
