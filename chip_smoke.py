@@ -32,9 +32,32 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    C=256, tree reuse), one warm-up move and two timed moves.  Both kernels'
    launch counters are set to 0 before and must read (budget+1) per move
    after; chosen actions must be legal and tree values finite;
-7. a ``kernels`` JSON line: each kernel with what it replaces, its launches
-   on the main path, its error against the plain version, its device time
-   (``ms``), its call time (``call_ms``), the plain version's and the
+7. the learner, small reference: two ``tiny3`` train steps (``train_ube``
+   False, then True) on the card against the same steps on the CPU, from
+   the same weights and batches, in float32 and in bf16: metrics, BN
+   statistics and parameters within the stated tolerances, the SimHash
+   seen-set exactly equal;
+8. the learner's main path at full width: ``takzero_torch.drivers.learn``
+   with ``--net net6_simhash --batch-size 128`` (16x256 bf16, SimHash over
+   2^32 bits) in a temporary directory: pre-training on 1,280 random-game
+   targets for 10 steps, then 10 steps of one batch and 20 steps in
+   chunks of up to 4 from a ``targets-selfplay.txt`` that the phase writes
+   with ``train.data.random_pretraining_targets``, each run resuming from
+   the last.  Both counters are set to 0 before and read after: kernel B
+   must have launched exactly as often as the driver's calls imply (two
+   per pre-training step, one per train step and one per chunk) and
+   kernel A never.  Every loss in ``metrics.jsonl`` must be finite, the
+   last step checkpoint must load, and its seen-set must equal the one
+   rebuilt from ``hash_log.bin``.  Kernel B is checked against its plain
+   version on the learner's own planes (128 and 512 rows).  The phase
+   line gives steps/s end to end, the device time of one train step
+   (CUDA events around 10 steps on one resident batch, after warm-up), the
+   share of the loop's time spent assembling batches on the host, and peak
+   device memory;
+9. a ``kernels`` JSON line: each kernel with what it replaces, its launches
+   on the move program (``launches``) and on the learner
+   (``learner_launches``), its error against the plain version, its device
+   time (``ms``), its call time (``call_ms``), the plain version's and the
    library call's device times, and its bound.
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
@@ -58,10 +81,11 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory bandwidth
-# and float32 outside the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory bandwidth,
+# float32 outside the tensor cores, and TF32 in them.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12  # tensor cores, dense
 NEG = -3.0e38
 
 
@@ -287,7 +311,7 @@ def check_simhash(eng, envs, gen, dev) -> dict:
     planes = state_to_planes(eng, envs)
     planes[:, input_channels(eng.n) - 2] = 0.0
     x = planes.reshape(planes.shape[0], -1).contiguous()
-    cases = ((128, 1296, 1), (1, 1296, 32), (37, 1001, 26), (5, 20, 7), (128, 2816, 32))
+    cases = ((128, 1296, 1), (1, 1296, 32), (37, 1001, 26), (5, 20, 7), (128, 2816, 32), (512, 1296, 32))
     for b, inp, bits in cases:
         xs = plane_like(b, inp, gen, dev)
         m = torch.randn(inp, bits, generator=gen, device=dev)
@@ -437,6 +461,251 @@ def run_main_path(dev) -> tuple[dict, object]:
     return launches, res
 
 
+def _train_pair(cfg, dev, steps: int = 2):
+    """``steps`` train steps of one tiny agent on the CPU and on ``dev``."""
+    import numpy as np
+    import torch
+
+    from takzero_torch.data.native_loader import make_batch_native
+    from takzero_torch.models.agent import new_agent
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.train.data import random_pretraining_targets
+    from takzero_torch.train.learner import make_optimizer, make_train_step
+
+    eng = engine(cfg.n, half_komi=cfg.half_komi)
+    lines = [t.to_line() for t in random_pretraining_targets(eng, 64 * steps, np.random.default_rng(7), device="cpu")]
+    out = {}
+    for where in ("cpu", dev):
+        agent = new_agent(cfg, seed=2, device=where)
+        opt, step = make_optimizer(agent), make_train_step(cfg)
+        rng = np.random.default_rng(8)
+        metrics = []
+        for k in range(steps):
+            batch = make_batch_native(eng, "\n".join(lines[64 * k:64 * (k + 1)]) + "\n", rng, device=where)
+            metrics.append({name: float(v) for name, v in step(agent, opt, batch, k > 0).items()})
+        out[str(where)] = (agent, metrics)
+    return out["cpu"], out[str(dev)]
+
+
+def check_learner_small_reference(dev) -> None:
+    """Two tiny3 train steps, card against CPU, in float32 and bf16."""
+    import dataclasses
+
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+
+    report = {"phase": "learner small reference"}
+    # float32 (TF32 off): metrics within 1e-4 and BN statistics within 1e-4
+    # (summation order).  bf16: every convolution rounds its result to
+    # bf16, so a sum that lands within rounding of a bf16 boundary rounds
+    # the other way on the other side: 5e-2.  Parameters: Adam's first
+    # step moves an entry by lr * sign(g) whatever |g|, so an entry whose
+    # gradient is at rounding level may move the other way: each entry
+    # within 4e-4 (two steps of lr 1e-4 each way), and the share off by
+    # more than 1e-6 is reported.
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        cfg = dataclasses.replace(NET_PRESETS["tiny3"], compute_dtype=dtype)
+        (a_cpu, m_cpu), (a_gpu, m_gpu) = _train_pair(cfg, dev)
+        name = str(dtype).split(".")[-1]
+        worst = 0.0
+        for mc, mg in zip(m_cpu, m_gpu):
+            for k in mc:
+                worst = max(worst, abs(mc[k] - mg[k]))
+                if not abs(mc[k] - mg[k]) <= tol * max(1.0, abs(mc[k])):
+                    raise AssertionError(f"learner {name}: {k} {mg[k]} on the card, {mc[k]} on the CPU")
+        off, total, stat_err, param_err = 0, 0, 0.0, 0.0
+        want = a_cpu["net"].state_dict()
+        for key, got in a_gpu["net"].state_dict().items():
+            got, w = got.cpu(), want[key]
+            if key.endswith("num_batches_tracked"):
+                continue
+            err = float((got - w).abs().max())
+            if key.endswith(("running_mean", "running_var")):
+                stat_err = max(stat_err, err)
+                if err > tol * max(1.0, float(w.abs().max())):
+                    raise AssertionError(f"learner {name}: BN statistic {key} off by {err}")
+                continue
+            param_err = max(param_err, err)
+            if err > 4e-4:
+                raise AssertionError(f"learner {name}: parameter {key} off by {err}")
+            off += int(((got - w).abs() > 1e-6).sum())
+            total += w.numel()
+        if not torch.equal(a_gpu["hash_bits"].cpu(), a_cpu["hash_bits"]):
+            raise AssertionError(f"learner {name}: SimHash seen-sets differ between card and CPU")
+        report[name] = {"tolerance": tol, "max_metric_diff": worst, "max_bn_stat_diff": stat_err,
+                        "max_param_diff": param_err, "params_off_by_more_than_1e-6": off,
+                        "params": total, "seen_set": "card == cpu"}
+    log(report)
+
+
+def train_step_flops(cfg, batch: int) -> float:
+    """Operations of one train step's convolutions: forward, and the two
+    backward products (input and weight gradients), 2 FLOP per
+    multiply-add; the heads' 1x1 convolutions and dense layers and the
+    elementwise work are left out (under 0.1%)."""
+    from takzero_torch.ops.repr import input_channels
+
+    per_position = 9 * cfg.filters * (input_channels(cfg.n) + 2 * cfg.blocks * cfg.filters + cfg.output_channels)
+    return 3 * 2 * batch * cfg.n * cfg.n * per_position
+
+
+def profile_train_step(fn, calls: int = 3) -> dict:
+    """Device time per call of ``fn`` under the profiler: kernels and
+    copies summed, the convolutions' (forward and backward, every kernel
+    under them), the idle share of the wall time, and the kernels that take
+    the most (their totals over the ``calls`` calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from takzero_torch.profile_move import _device_total_us, _device_us, _top
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # A user annotation (the optimizer's step and zero_grad) also shows as a
+    # device range over the kernels it launched: count kernels only.
+    rows = [r for r in prof.key_averages() if not getattr(r, "is_user_annotation", False)]
+    on_device = [e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    device_us = sum(e.time_range.elapsed_us() for e in on_device)
+    conv_us = sum(_device_total_us(r) for r in rows if r.key in ("aten::convolution", "aten::convolution_backward"))
+    return {
+        "device_busy_ms": device_us / 1e3 / calls, "device_events": len(on_device) // calls,
+        "idle_share_under_profiler": 1.0 - device_us / 1e6 / wall, "conv_device_ms": conv_us / 1e3 / calls,
+        "top_by_device": _top([r for r in rows if r.device_type == DeviceType.CUDA], _device_us, 6),
+    }
+
+
+def _expected_learner_launches(pretrain_steps: int, runs) -> int:
+    """Kernel B launches the driver's calls imply: a pre-training step
+    hashes its batch twice (fresh bits, then the update); a loop chunk
+    hashes all its batches once for the fresh bits and each step hashes
+    its batch once."""
+    from takzero_torch.config import LearnConfig
+    from takzero_torch.drivers.learn import chunk_len
+
+    total = 2 * pretrain_steps
+    for start, steps, chunk, per_ckpt in runs:
+        cfg = LearnConfig(steps_per_checkpoint=per_ckpt)
+        model, target = start, start + steps
+        while model < target:
+            c = chunk_len(model, chunk, cfg, cross_reanalyze=False, target_steps=target)
+            total += c + 1
+            model += c
+    return total
+
+
+def run_learner_main_path(dev) -> dict:
+    """The learn driver at net6_simhash full width, in a temporary directory."""
+    import json
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.data.native_loader import make_batch_native
+    from takzero_torch.drivers import learn
+    from takzero_torch.models.agent import new_agent
+    from takzero_torch.ops import simhash, topk
+    from takzero_torch.ops.bitset import bitset_init, bitset_set
+    from takzero_torch.ops.repr import input_channels
+    from takzero_torch.parallel import coordinator as co
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.train.data import random_pretraining_targets
+    from takzero_torch.train.learner import make_optimizer, make_train_step
+    from takzero_torch.utils import ckpt
+
+    cfg = NET_PRESETS["net6_simhash"]
+    eng = engine(cfg.n, half_komi=cfg.half_komi)
+    pretrain = 10
+    # (start, steps, chunk, checkpoint cadence): each run ends on a step
+    # checkpoint, which the next run resumes from and the checks load.
+    runs = [(10, 10, 1, 10), (20, 20, 4, 20)]
+    with tempfile.TemporaryDirectory(prefix="takzero_learn_") as d:
+        common = ["--directory", d, "--net", "net6_simhash", "--batch-size", "128", "--no-wait",
+                  "--seed", "0", "--device", str(dev)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        topk.exact_top_k_unsorted.launches = 0
+        simhash.simhash_pack.launches = 0
+        t0 = time.perf_counter()
+        learn.main(common + ["--pretrain-targets", "1280", "--pretrain-steps", str(pretrain), "--max-steps", "0",
+                             "--steps-per-checkpoint", "10"])
+        pretrain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lines = [t.to_line() for t in random_pretraining_targets(eng, 1280, np.random.default_rng(1), device=dev)]
+        co.append_lines(d, co.TARGETS_SELFPLAY, lines)
+        targets_s = time.perf_counter() - t0
+        loop = []
+        for start, steps, chunk, per_ckpt in runs:
+            loop.append(learn.main(common + ["--pretrain-steps", "0", "--max-steps", str(steps),
+                                             "--chunk-steps", str(chunk), "--steps-per-checkpoint", str(per_ckpt)]))
+        torch.cuda.synchronize(dev)
+        launches = {"exact_top_k_unsorted": topk.exact_top_k_unsorted.launches,
+                    "simhash_pack": simhash.simhash_pack.launches}
+        expect = _expected_learner_launches(pretrain, runs)
+        if launches != {"exact_top_k_unsorted": 0, "simhash_pack": expect}:
+            raise AssertionError(f"learner launches {launches}, expected kernel B {expect} and kernel A 0")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        rows = [json.loads(x) for x in open(f"{d}/metrics.jsonl", encoding="utf-8").read().splitlines()]
+        if [r["step"] for r in rows] != list(range(pretrain + 1, pretrain + 1 + sum(r[1] for r in runs))):
+            raise AssertionError(f"metrics.jsonl steps {[r['step'] for r in rows]}")
+        if not all(math.isfinite(r[k]) for r in rows for k in ("loss", "loss_policy", "loss_value", "loss_ube")):
+            raise AssertionError("non-finite loss in metrics.jsonl")
+        last_step, path = ckpt.model_path_with_most_steps(d)
+        if last_step != runs[-1][0] + runs[-1][1]:
+            raise AssertionError(f"last step checkpoint {path}, expected step {runs[-1][0] + runs[-1][1]}")
+        agent = ckpt.load_checkpoint(path, new_agent(cfg, seed=5, device=dev))
+        idx, _ = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)
+        rebuilt = bitset_set(bitset_init(cfg.hash_bits, dev), torch.from_numpy(idx.astype(np.int64)).to(dev))
+        if not torch.equal(rebuilt, agent["hash_bits"]):
+            raise AssertionError("the last checkpoint's seen-set differs from the one rebuilt from hash_log.bin")
+        bits_set = int(idx.size)
+
+        # One full-width train step on one resident batch, after warm-up.
+        batch = make_batch_native(eng, "\n".join(lines[:512]) + "\n", np.random.default_rng(2), splits=4, device=dev)
+        x = batch.planes.reshape(512, -1).clone()
+        x.view(512, input_channels(cfg.n), -1)[:, input_channels(cfg.n) - 2] = 0.0
+        err = max(expect_simhash_equal(x[:128].contiguous(), agent["hash_matrix"], "learner planes, 128 rows"),
+                  expect_simhash_equal(x, agent["hash_matrix"], "learner planes, 512 rows"))
+        one = type(batch)(*(t[0] for t in batch))
+        opt, step = make_optimizer(agent), make_train_step(cfg)
+        for _ in range(3):
+            step(agent, opt, one, True)
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            step(agent, opt, one, True)
+        end.record()
+        torch.cuda.synchronize(dev)
+        step_ms = start.elapsed_time(end) / 10
+        busy = profile_train_step(lambda: step(agent, opt, one, True))
+
+    steps = sum(r["steps"] for r in loop)
+    seconds = sum(r["seconds"] for r in loop)
+    out = {
+        "phase": "learner main path", "net": "net6_simhash (16x256 bf16, SimHash 2^32)", "batch": 128,
+        "card": card_line(), "steps_per_s": steps / seconds,
+        "steps_per_s_by_run": [r["steps"] / r["seconds"] for r in loop],
+        "chunks": [[r[2], r[1]] for r in runs],
+        "train_step_device_ms": step_ms, "train_step_bound_ms": train_step_flops(cfg, 128) / TF32_FLOPS * 1e3,
+        "train_step_profile": busy, "host_assembly_share": sum(r["assemble_seconds"] for r in loop) / seconds,
+        "peak_memory_gb": peak_gb, "pretrain_seconds": pretrain_s, "selfplay_targets_seconds": targets_s,
+        "launches": launches, "hash_log_bits": bits_set, "kernel_b_learner_planes_err": err,
+        "metrics_rows": len(rows), "last_loss": rows[-1]["loss"],
+    }
+    log(out)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -474,6 +743,8 @@ def main() -> int:
         return 0
     check_small_reference(dev)
     launches, _ = run_main_path(dev)
+    check_learner_small_reference(dev)
+    learner_launches = run_learner_main_path(dev)
 
     kernels = []
     for name, out, source, replaces in (
@@ -483,7 +754,8 @@ def main() -> int:
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "checked": True, "launches": launches[name], "max_abs_err": out["max_abs_err"],
+            "checked": True, "launches": launches[name], "learner_launches": learner_launches[name],
+            "max_abs_err": out["max_abs_err"],
             "ms": out["kernel_ms"], "call_ms": out["call_ms"], "plain_ms": out["plain_ms"],
             "bound_ms": out["bound_ms"], "bound_by": out["bound_by"], "library_ms": out["library_ms"],
         })

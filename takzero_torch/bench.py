@@ -14,8 +14,13 @@ overrides: TAKZERO_BENCH_BATCH, TAKZERO_BENCH_BUDGET,
 TAKZERO_BENCH_SAMPLED, TAKZERO_BENCH_MOVES, TAKZERO_BENCH_FILTERS,
 TAKZERO_BENCH_BLOCKS, TAKZERO_BENCH_CHILDREN, TAKZERO_BENCH_REUSE (0
 disables tree reuse), TAKZERO_BENCH_VERBOSE (1: per-move seconds on
-stderr).  TAKZERO_BENCH_CKPT is refused: loading a flax checkpoint is not
-ported yet.
+stderr), TAKZERO_BENCH_CKPT (a checkpoint of the port's learner,
+``takzero_torch/utils/ckpt.py``: its weights, SimHash matrix and, for a
+step checkpoint, seen-set replace the random ones; the SimHash width is
+the checkpoint's, and its filters and blocks must match
+TAKZERO_BENCH_FILTERS and TAKZERO_BENCH_BLOCKS).  A JAX run's flax
+msgpack file is refused: its weights come over through
+``takzero_torch.bridge``.
 
 ``vs_baseline`` divides by ``reference_on_this_host_sims_per_s_total`` in
 ``BASELINE.json``, as the root bench does; that anchor was measured on the
@@ -46,14 +51,11 @@ class BenchConfig:
     reuse: bool = True
     hash_bits: int = 26
     seed: int = 0
+    ckpt: str | None = None
 
     @classmethod
     def from_env(cls) -> "BenchConfig":
         env = os.environ.get
-        if env("TAKZERO_BENCH_CKPT"):
-            raise NotImplementedError(
-                "TAKZERO_BENCH_CKPT: takzero_torch cannot load flax checkpoints yet"
-            )
         children = env("TAKZERO_BENCH_CHILDREN")
         return cls(
             batch=int(env("TAKZERO_BENCH_BATCH", 128)),
@@ -64,6 +66,7 @@ class BenchConfig:
             blocks=int(env("TAKZERO_BENCH_BLOCKS", 16)),
             children=int(children) if children else None,
             reuse=env("TAKZERO_BENCH_REUSE", "1") != "0",
+            ckpt=env("TAKZERO_BENCH_CKPT") or None,
         )
 
 
@@ -100,7 +103,8 @@ class BenchResult:
             "unit": (
                 f"simulations/s (batch={c.batch}, k={c.sampled}, budget={c.budget}, "
                 f"{c.blocks}x{c.filters} net, C={self.max_children}, reuse={int(c.reuse)}, "
-                f"random init; full selfplay move program; takzero_torch on {self.device_name})"
+                f"{'trained ckpt' if c.ckpt else 'random init'}; full selfplay move program; "
+                f"takzero_torch on {self.device_name})"
             ),
             "vs_baseline": vs_baseline,
         }
@@ -133,21 +137,28 @@ class Setup:
 
 
 def setup(cfg: BenchConfig, device=None) -> Setup:
-    """Random weights from ``cfg.seed``, fresh openings and fresh trees."""
+    """Random weights from ``cfg.seed`` (or ``cfg.ckpt``'s), fresh openings
+    and fresh trees."""
     from .config import selfplay_preset
     from .device import resolve_device
     from .models.agent import make_net_evaluate, new_agent
     from .models.network import NetConfig
     from .selfplay import SelfplayEngine, make_draws
     from .tak.engine import engine
+    from .utils import ckpt
 
     dev = resolve_device(device)
+    hash_bits = cfg.hash_bits
+    if cfg.ckpt:
+        hash_bits = ckpt.read_checkpoint(cfg.ckpt)["hash_matrix"].shape[1]
     net_cfg = NetConfig(
         n=6, half_komi=4, filters=cfg.filters, blocks=cfg.blocks,
-        novelty="simhash", hash_bits=cfg.hash_bits,
+        novelty="simhash", hash_bits=hash_bits,
     )
     eng = engine(6, half_komi=4)
     agent = new_agent(net_cfg, seed=cfg.seed, device=dev)
+    if cfg.ckpt:
+        ckpt.load_checkpoint(cfg.ckpt, agent)
     evaluator = make_net_evaluate(net_cfg, eng, device=dev)
     overrides = dict(
         batch=cfg.batch, search_budget=cfg.budget, sampled_actions=cfg.sampled,

@@ -11,6 +11,12 @@
   SimHash matrix are taken from the bundle: torch cannot redraw JAX's PRNG,
   and the hash-log contract needs the same matrix.
 
+The result evaluates and trains: a JAX ``train_step`` and the port's
+``train_step`` (``takzero_torch/train/learner.py``) from the same bundle
+and batch compute the same step.  Optimizer state is not carried; it
+starts fresh on both sides, as in the JAX learner, whose checkpoints hold
+no optax state.
+
 This module needs neither JAX nor flax: the bundle is plain nested dicts of
 numpy arrays.
 """

@@ -6,6 +6,8 @@ Only the presets whose novelty variant the port has (``simhash``,
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 from .models.network import NetConfig
 from .selfplay import SelfplayConfig
 
@@ -15,6 +17,11 @@ NET_PRESETS: dict[str, NetConfig] = {
     "net4_plain": NetConfig(n=4, half_komi=4, novelty="none"),
     "tiny3": NetConfig(n=3, half_komi=0, filters=16, blocks=2, novelty="simhash", hash_bits=12),
 }
+
+
+# The JAX package's presets whose novelty variant (rnd, lcghash, ensemble)
+# the port does not have yet.
+NOT_PORTED_PRESETS = ("net4_rnd", "net5", "net4_lcghash", "net4_ensemble", "tiny3_rnd", "tiny4")
 
 
 def selfplay_preset(net: str, **overrides) -> SelfplayConfig:
@@ -31,3 +38,22 @@ def selfplay_preset(net: str, **overrides) -> SelfplayConfig:
     )
     defaults.update(overrides)
     return SelfplayConfig(**defaults)
+
+
+@dataclass(frozen=True)
+class LearnConfig:
+    """learn/src/main.rs:42-65."""
+
+    batch_size: int = 128
+    steps_per_save: int = 100
+    steps_per_checkpoint: int = 50_000
+    learning_rate: float = 1e-4
+    initial_random_targets: int = 128 * 2_000
+    pre_training_steps: int = 1_000
+    steps_before_reanalyze: int = 5_000
+    min_selfplay_buffer: int = 10_000
+    min_reanalyze_buffer: int = 2_000
+    selfplay_forced_uses: int = 4
+    reanalyze_forced_uses: int = 4
+    min_seconds_between_reads: float = 10.0
+    sleep_when_starved: float = 30.0

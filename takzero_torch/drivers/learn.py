@@ -1,0 +1,278 @@
+"""Learner driver.
+
+Counterpart of ``takzero_tpu/drivers/learn.py`` (the reference's learn
+binary, learn/src/main.rs), on one device: resume from the highest-step
+checkpoint (or a fresh init and pre-training on random games), then loop:
+tail the two target files, publish the buffer lengths, draw a batch
+(64 + 64 once reanalyze joins at step 5000), augment it, take one
+optimizer step, save ``model_latest.ckpt`` every 100 steps and an
+immutable checkpoint every 50000.  Metrics go to ``metrics.jsonl`` one
+chunk late, so the host reads the device only after it queued the next
+chunk; the bits each batch newly sets in the SimHash seen-set go to
+``hash_log.bin``.
+
+Usage:
+    python -m takzero_torch.drivers.learn --directory DIR [--net ...]
+        [--restart-targets FILE] [--max-steps N] [--device cuda|cpu]
+
+The run directory's files are those of the JAX learner; the model files
+are the port's own format (``takzero_torch/utils/ckpt.py``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import NET_PRESETS, NOT_PORTED_PRESETS, LearnConfig
+from ..data.buffer import TargetBuffer
+from ..data.native_loader import make_batch_native, valid_target_lines
+from ..device import resolve_device
+from ..models.agent import hash_indices_fresh, new_agent
+from ..parallel import coordinator as co
+from ..tak.engine import engine
+from ..train.data import random_pretraining_targets
+from ..train.learner import make_optimizer, make_train_step, make_train_step_chunk
+from ..utils import ckpt
+
+log = logging.getLogger("learn")
+
+
+def chunk_len(model_steps: int, chunk_steps: int, cfg, cross_reanalyze: bool,
+              target_steps: int | None) -> int:
+    """Steps in the next chunk.
+
+    Chunks never cross a save boundary, an immutable-checkpoint boundary,
+    the reanalyze switch-on, or the step target.
+    """
+    c = min(
+        chunk_steps,
+        cfg.steps_per_save - (model_steps % cfg.steps_per_save),
+        cfg.steps_per_checkpoint - (model_steps % cfg.steps_per_checkpoint),
+    )
+    if not cross_reanalyze:
+        c = min(c, cfg.steps_before_reanalyze - (model_steps + 1))
+    if target_steps is not None:
+        c = min(c, target_steps - model_steps)
+    return max(c, 1)
+
+
+def main(argv=None) -> dict:
+    """Run the learner; returns the main loop's counts and host times:
+    ``steps``, ``seconds`` (wall time of the loop, device included) and
+    ``assemble_seconds`` (draining the buffers and building the batches)."""
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--directory", required=True)
+    parser.add_argument("--net", default="net6_simhash", choices=[*NET_PRESETS, *NOT_PORTED_PRESETS])
+    parser.add_argument("--restart-targets", default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--max-steps", type=int, default=None, help="for tests")
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--pretrain-targets", type=int, default=None)
+    parser.add_argument("--pretrain-steps", type=int, default=None)
+    parser.add_argument("--no-wait", action="store_true", help="for tests")
+    parser.add_argument("--steps-per-checkpoint", type=int, default=None,
+                        help="immutable checkpoint cadence (default 50000, learn/src/main.rs:45)")
+    parser.add_argument("--chunk-steps", type=int, default=None,
+                        help="optimizer steps per chunk (default 20; 1 with --no-wait). Chunks "
+                        "never cross a checkpoint boundary.")
+    parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    parser.add_argument("--devices", type=int, default=None, help="not ported")
+    parser.add_argument("--profile", default=None, metavar="DIR", help="not ported")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    if args.devices is not None or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "takzero_torch learns on one device: --devices and multihost runs are not "
+            "ported yet (ROADMAP.md queue 1, item 11)"
+        )
+    if args.profile is not None:
+        raise NotImplementedError("--profile is not ported yet (ROADMAP.md queue 1, item 7)")
+    if args.net in NOT_PORTED_PRESETS:
+        raise NotImplementedError(
+            f"--net {args.net}: takzero_torch ports the simhash and none novelty variants; "
+            "RND, ensemble and lcghash nets are not ported yet"
+        )
+    dev = resolve_device(args.device)
+
+    cfg = LearnConfig(
+        batch_size=args.batch_size or LearnConfig.batch_size,
+        initial_random_targets=args.pretrain_targets or LearnConfig.initial_random_targets,
+        pre_training_steps=(
+            args.pretrain_steps if args.pretrain_steps is not None else LearnConfig.pre_training_steps
+        ),
+        steps_per_checkpoint=args.steps_per_checkpoint or LearnConfig.steps_per_checkpoint,
+    )
+    net_cfg = NET_PRESETS[args.net]
+    eng = engine(net_cfg.n, half_komi=net_cfg.half_komi)
+    rng = np.random.default_rng(args.seed)
+    chunk_steps = args.chunk_steps or (1 if args.no_wait else 20)
+    train_step = make_train_step(net_cfg)
+    train_chunk = make_train_step_chunk(net_cfg)
+
+    def batch_of(lines, splits=None):
+        return make_batch_native(eng, "\n".join(lines) + "\n", rng, splits=splits, device=dev)
+
+    # SimHash nets publish weights-only latest checkpoints plus the log of
+    # newly set bits, computed against the bitset before each step (the
+    # matrix never trains, so they are the train step's own bits).
+    hash_logged = net_cfg.novelty == "simhash"
+
+    def fresh_pair(planes):
+        if not hash_logged:
+            return None
+        return hash_indices_fresh(net_cfg, bundle, planes.reshape((-1,) + planes.shape[-3:]))
+
+    bundle = new_agent(net_cfg, seed=args.seed, device=dev)
+    bundle, steps = ckpt.resume_with_hash_log(args.directory, bundle, log, reconcile=hash_logged)
+    opt = make_optimizer(bundle, cfg.learning_rate)
+    if steps == 0:
+        ckpt.save_checkpoint(args.directory, "model_0000000.ckpt", bundle)
+
+    boot_idx: list = []
+    if args.restart_targets:
+        with open(args.restart_targets, encoding="utf-8") as f:
+            lines = valid_target_lines(net_cfg.n, f.read().splitlines())
+        rng.shuffle(lines)
+        for i in range(0, len(lines) - cfg.batch_size + 1, cfg.batch_size):
+            batch = batch_of(lines[i : i + cfg.batch_size])
+            boot_idx.append(fresh_pair(batch.planes))
+            train_step(bundle, opt, batch, train_ube=False)
+            steps += 1
+        ckpt.save_checkpoint(args.directory, f"model_{steps:07d}.ckpt", bundle)
+    elif steps == 0 and cfg.pre_training_steps > 0:
+        log.info("pre-training on %d random targets", cfg.initial_random_targets)
+        targets = random_pretraining_targets(eng, cfg.initial_random_targets, rng, device=dev)
+        co.append_lines(args.directory, co.TARGETS_INITIAL, [t.to_line() for t in targets])
+        rng.shuffle(targets)
+        for i in range(cfg.pre_training_steps):
+            chunk = targets[i * cfg.batch_size : (i + 1) * cfg.batch_size]
+            if len(chunk) < cfg.batch_size:
+                break
+            batch = batch_of([t.to_line() for t in chunk])
+            boot_idx.append(fresh_pair(batch.planes))
+            m = train_step(bundle, opt, batch, train_ube=False)
+            if i % 100 == 0:
+                log.info("pretrain %d: %s", i, {k: float(v) for k, v in m.items()})
+            steps += 1
+        ckpt.save_checkpoint(args.directory, f"model_{steps:07d}.ckpt", bundle)
+
+    if hash_logged and boot_idx:
+        ckpt.append_hash_indices(args.directory, ckpt.fresh_indices(
+            torch.cat([i for i, _ in boot_idx]), torch.cat([f for _, f in boot_idx])
+        ))
+    ckpt.save_checkpoint(args.directory, "model_latest.ckpt", ckpt.strip_hash_bits(bundle))
+
+    sp_buffer = TargetBuffer(rng)
+    re_buffer = TargetBuffer(rng)
+    sp_tail = co.Tailer(args.directory, co.TARGETS_SELFPLAY)
+    re_tail = co.Tailer(args.directory, co.TARGETS_REANALYZE)
+    last_read = 0.0
+    pending_metrics: list = []
+    saver = ckpt.AsyncSaver()
+    last_flush = [0.0]
+
+    def flush_metrics(item):
+        """Read one chunk's metrics and fresh bits; log and record per step."""
+        first_step, c, metrics, pair = item
+        keys = sorted(metrics)
+        host = torch.stack([metrics[k] for k in keys]).cpu().numpy()
+        if pair is not None:
+            ckpt.append_hash_indices(args.directory, ckpt.fresh_indices(*pair))
+        jsonl = []
+        for i in range(c):
+            m = {k: float(host[j, i]) for j, k in enumerate(keys)}
+            log.info("step %d: loss=%.4f policy=%.4f value=%.4f ube=%.4f", first_step + i,
+                     m["loss"], m["loss_policy"], m["loss_value"], m["loss_ube"])
+            jsonl.append(json.dumps({"step": first_step + i, **m}))
+        now = time.time()
+        if last_flush[0]:
+            log.info("chunk of %d flushed: %.1f steps/s end-to-end", c, c / max(now - last_flush[0], 1e-9))
+        last_flush[0] = now
+        co.append_lines(args.directory, "metrics.jsonl", jsonl)
+
+    def finish(loop_steps: int, t_loop: float, assemble_s: float) -> dict:
+        for item in pending_metrics:
+            flush_metrics(item)
+        # Always leave a final latest for downstream consumers.
+        saver.submit(args.directory, "model_latest.ckpt", ckpt.strip_hash_bits(bundle))
+        saver.drain()
+        seconds = time.perf_counter() - t_loop
+        log.info("learn loop: %d steps in %.3f s, batch assembly %.3f s", loop_steps, seconds, assemble_s)
+        return {"steps": loop_steps, "seconds": seconds, "assemble_seconds": assemble_s}
+
+    target_steps = None if args.max_steps is None else steps + args.max_steps
+    model_steps = steps
+    t_loop, assemble_s = time.perf_counter(), 0.0
+    while target_steps is None or model_steps < target_steps:
+        first = model_steps + 1
+        using_reanalyze = args.restart_targets is not None or first >= cfg.steps_before_reanalyze
+        c = chunk_len(model_steps, chunk_steps, cfg, cross_reanalyze=using_reanalyze,
+                      target_steps=target_steps)
+
+        while True:
+            if time.time() - last_read >= (0.0 if args.no_wait else cfg.min_seconds_between_reads):
+                sp_buffer.extend(valid_target_lines(net_cfg.n, sp_tail.read_new_lines()),
+                                 cfg.selfplay_forced_uses, first)
+                if using_reanalyze:
+                    re_buffer.extend(valid_target_lines(net_cfg.n, re_tail.read_new_lines()),
+                                     cfg.reanalyze_forced_uses, first)
+                last_read = time.time()
+                co.write_buffer_lengths(args.directory, len(sp_buffer), len(re_buffer))
+
+            if args.no_wait:
+                # Tests: fit the chunk to the available full batches.
+                c = min(c, max(1, len(sp_buffer) // cfg.batch_size))
+            # Worst case every drained entry is on its last forced use: gate
+            # on the chunk's full consumption per stream.
+            need_sp = c * (cfg.batch_size // 2 if using_reanalyze else cfg.batch_size)
+            need_re = c * (cfg.batch_size // 2)
+            min_sp = c * cfg.batch_size if args.no_wait else max(cfg.min_selfplay_buffer, need_sp)
+            min_re = c * cfg.batch_size if args.no_wait else max(cfg.min_reanalyze_buffer, need_re)
+            enough_sp = len(sp_buffer) >= min_sp
+            enough_re = not using_reanalyze or len(re_buffer) >= min_re
+            if enough_sp and enough_re:
+                break
+            if args.no_wait:
+                if enough_sp:  # tests: degrade to selfplay-only batches
+                    using_reanalyze = False
+                    break
+                return finish(model_steps - steps, t_loop, assemble_s)
+            log.info("not enough targets (sp=%d re=%d), sleeping %.0fs",
+                     len(sp_buffer), len(re_buffer), cfg.sleep_when_starved)
+            time.sleep(cfg.sleep_when_starved)
+
+        t_a = time.perf_counter()
+        drained: list = []
+        for _ in range(c):
+            if using_reanalyze:
+                half = cfg.batch_size // 2
+                drained += sp_buffer.drain_batch(half) + re_buffer.drain_batch(half)
+            else:
+                drained += sp_buffer.drain_batch(cfg.batch_size)
+        # One parse and one transfer for the whole chunk.
+        batches = batch_of(drained, splits=c)
+        assemble_s += time.perf_counter() - t_a
+        pair = fresh_pair(batches.planes)
+        metrics = train_chunk(bundle, opt, batches, train_ube=True)
+        first_step = model_steps + 1
+        model_steps += c
+        pending_metrics.append((first_step, c, metrics, pair))
+        if len(pending_metrics) > 1:
+            flush_metrics(pending_metrics.pop(0))
+        if model_steps % cfg.steps_per_save == 0:
+            saver.submit(args.directory, "model_latest.ckpt", ckpt.strip_hash_bits(bundle))
+        if model_steps % cfg.steps_per_checkpoint == 0:
+            saver.submit(args.directory, f"model_{model_steps:07d}.ckpt", bundle)
+    return finish(model_steps - steps, t_loop, assemble_s)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,13 +3,17 @@
 Counterpart of ``takzero_tpu/models/agent.py`` for the ``simhash`` and
 ``none`` novelty variants.  An agent *bundle* is a dict:
 
-* ``net``: the :class:`TakNet` module (eval mode);
+* ``net``: the :class:`TakNet` module (eval mode; the learner trains it
+  in place, see ``takzero_torch/train/learner.py``);
 * ``folded``: its BN-folded inference weights (``fold_inference_params``),
-  computed once here and reused by every evaluation (the JAX program
-  hoists the same fold out of its search loop).  Whoever changes ``net``'s
-  weights refolds;
+  computed once and reused by every evaluation (the JAX program hoists the
+  same fold out of its search loop).  Whoever changes ``net``'s weights
+  drops ``folded``; :func:`folded_weights` refolds before the next
+  evaluation;
 * for ``simhash``: ``hash_bits`` (the seen-set, int32 words holding the
   uint32 bit patterns) and ``hash_matrix`` f32[input_size, hash_bits].
+  The matrix never trains, so the hash indices of a position are the same
+  from any bundle of one run: the hash-log protocol relies on it.
 
 ``net_evaluate(bundle, envs) -> (logits [B,A], value [B], variance [B])``
 with ``variance = clip(max(exp(ube), novelty), 0, 4)``; SimHash novelty is
@@ -21,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from ..ops.bitset import bitset_init, bitset_query
+from ..ops.bitset import bitset_init, bitset_query, bitset_set
 from ..ops.repr import input_channels, state_to_planes
 from ..ops.simhash import simhash_pack
 from ..tak.engine import TakEngine
@@ -73,9 +77,39 @@ def simhash_indices(cfg: NetConfig, matrix: torch.Tensor, planes: torch.Tensor) 
     return simhash_pack(x.reshape(b, -1), matrix)
 
 
+def hash_indices(cfg: NetConfig, bundle: dict, planes: torch.Tensor) -> torch.Tensor:
+    """int64[B] bitset indices of a plane batch (kernel B on the card)."""
+    return simhash_indices(cfg, bundle["hash_matrix"], planes)
+
+
 def hash_novelty(cfg: NetConfig, bundle: dict, planes: torch.Tensor) -> torch.Tensor:
-    seen = bitset_query(bundle["hash_bits"], simhash_indices(cfg, bundle["hash_matrix"], planes))
+    seen = bitset_query(bundle["hash_bits"], hash_indices(cfg, bundle, planes))
     return torch.where(seen, 0.0, MAXIMUM_VARIANCE)
+
+
+def hash_update(cfg: NetConfig, bundle: dict, planes: torch.Tensor) -> dict:
+    """Mark the positions of ``planes`` as seen, in place; returns ``bundle``."""
+    bitset_set(bundle["hash_bits"], hash_indices(cfg, bundle, planes))
+    return bundle
+
+
+def hash_indices_fresh(cfg: NetConfig, bundle: dict, planes: torch.Tensor):
+    """(int64[B] indices, bool[B] fresh): the fresh bits are not yet set in
+    ``bundle["hash_bits"]``.  The learner calls this on the bundle before a
+    train step (whose ``hash_update`` sets the same bits) and appends only
+    the fresh indices to ``hash_log.bin``, which keeps the log bounded by
+    the number of distinct bits ever set."""
+    idx = hash_indices(cfg, bundle, planes)
+    return idx, ~bitset_query(bundle["hash_bits"], idx)
+
+
+@torch.no_grad()
+def folded_weights(cfg: NetConfig, bundle: dict) -> dict:
+    """``bundle["folded"]``, refolded from ``bundle["net"]`` if a train step
+    dropped it."""
+    if "folded" not in bundle:
+        bundle["folded"] = fold_inference_params(cfg, bundle["net"])
+    return bundle["folded"]
 
 
 def make_net_evaluate(cfg: NetConfig, eng: TakEngine, device=None):
@@ -92,7 +126,7 @@ def make_net_evaluate(cfg: NetConfig, eng: TakEngine, device=None):
         if envs.ply.device.type != dev.type:
             raise ValueError(f"net_evaluate: envs on {envs.ply.device}, evaluator on {dev}")
         planes = state_to_planes(eng, envs)
-        policy, value, ube = apply_folded(cfg, bundle["folded"], planes)
+        policy, value, ube = apply_folded(cfg, folded_weights(cfg, bundle), planes)
         if cfg.novelty == "simhash":
             local = hash_novelty(cfg, bundle, planes)
         else:

@@ -4,15 +4,29 @@ Counterpart of ``takzero_tpu/models/network.py``: a conv3x3+BN+relu stem,
 ``blocks`` residual blocks of ``filters`` channels, a conv3x3 policy head
 flattened channel-major (the action-index layout, and NCHW's natural
 flatten), and value/UBE heads conv1x1 -> relu -> flatten -> dense(1)
-(tanh on the value).  Only inference is ported in this slice: the modules
-run in eval mode (running BatchNorm statistics).
+(tanh on the value); the UBE head reads the detached core.
 
-Numerics of the folded path follow ``apply_folded``: each convolution
+The modules follow flax's numerics, not torch's defaults, in both modes
+(``net.train()`` / ``net.eval()``):
+
+* a convolution (:func:`flax_conv`) is flax's ``nn.Conv(dtype=compute_dtype)``:
+  its operands and bias are rounded to ``compute_dtype``, the product is
+  taken in float32 (exact for bf16 operands) and rounded to
+  ``compute_dtype``, and the bias is added in ``compute_dtype``;
+* BatchNorm (:func:`flax_batch_norm`) computes in float32 over (B, H, W)
+  with eps 1e-5.  In train mode it normalises with flax's fast batch
+  variance ``max(0, mean(x^2) - mean(x)^2)`` and updates the running
+  statistics to ``0.9 * old + 0.1 * batch`` with that same (biased)
+  variance; in eval mode it uses the running statistics;
+* the residual sums, the heads' flatten and their dense layers are float32.
+
+The folded inference path follows ``apply_folded``: each convolution
 takes its operands rounded to ``compute_dtype``, multiplies and accumulates
 them in float32 (JAX's ``preferred_element_type=float32``), adds the f32
 bias (and the residual) to that float32 result, and the activation is cast
 back to ``compute_dtype`` where JAX casts: one rounding per layer, as in
-the JAX package.
+the JAX package.  Unlike the modules, it does not round a convolution's
+result.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ from ..tak.moves import action_space
 
 MAXIMUM_VARIANCE = 4.0  # value span is [-1, 1] -> variance <= 2^2
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,21 +65,57 @@ class NetConfig:
         return action_space(self.n).num_channels
 
 
+def flax_conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=dtype)`` with ``conv``'s weights ("SAME" padding).
+
+    Every operand of the float32 convolution is ``dtype``-exact, in the
+    backward pass too (autograd rounds each gradient to ``dtype`` where the
+    forward rounds), so cuDNN's TF32 is exact for bf16 under
+    :func:`conv_precision`.
+    """
+    pad = conv.kernel_size[0] // 2
+    y = F.conv2d(x.to(dtype).float(), conv.weight.to(dtype).float(), padding=pad).to(dtype)
+    if conv.bias is not None:
+        y = y + conv.bias.to(dtype)[None, :, None, None]
+    return y
+
+
+def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)``.
+
+    In train mode the running statistics of ``bn`` are updated in place
+    (outside autograd), as flax's mutable ``batch_stats``.
+    """
+    x = x.float()
+    if train:
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(_BN_MOMENTUM * bn.running_mean + (1 - _BN_MOMENTUM) * mean)
+            bn.running_var.copy_(_BN_MOMENTUM * bn.running_var + (1 - _BN_MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + _BN_EPS) * bn.weight
+    y = (x - mean[None, :, None, None]) * mul[None, :, None, None]
+    return y + bn.bias[None, :, None, None]
+
+
 class ConvBN(nn.Module):
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv2d(cin, cout, 3, padding=1, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=_BN_EPS)
+        self.bn = nn.BatchNorm2d(cout, eps=_BN_EPS)  # parameter holder; see flax_batch_norm
 
     def forward(self, x):
-        return self.bn(self.conv(x))
+        return flax_batch_norm(self.bn, flax_conv(self.conv, x, self.dtype), self.training)
 
 
 class ResBlock(nn.Module):
-    def __init__(self, filters: int):
+    def __init__(self, filters: int, dtype: torch.dtype):
         super().__init__()
-        self.a = ConvBN(filters, filters)
-        self.b = ConvBN(filters, filters)
+        self.a = ConvBN(filters, filters, dtype)
+        self.b = ConvBN(filters, filters, dtype)
 
     def forward(self, x):
         return F.relu(x + self.b(F.relu(self.a(x))))
@@ -73,8 +124,9 @@ class ResBlock(nn.Module):
 class Core(nn.Module):
     def __init__(self, cfg: NetConfig):
         super().__init__()
-        self.stem = ConvBN(input_channels(cfg.n), cfg.filters)
-        self.blocks = nn.ModuleList(ResBlock(cfg.filters) for _ in range(cfg.blocks))
+        dt = cfg.compute_dtype
+        self.stem = ConvBN(input_channels(cfg.n), cfg.filters, dt)
+        self.blocks = nn.ModuleList(ResBlock(cfg.filters, dt) for _ in range(cfg.blocks))
 
     def forward(self, x):
         x = F.relu(self.stem(x))
@@ -84,22 +136,27 @@ class Core(nn.Module):
 
 
 class ScalarHead(nn.Module):
-    """conv1x1 -> relu -> flatten -> dense(1); optional tanh."""
+    """conv1x1 -> relu -> flatten -> dense(1) in float32; optional tanh."""
 
     def __init__(self, cfg: NetConfig, tanh: bool):
         super().__init__()
         self.tanh = tanh
+        self.dtype = cfg.compute_dtype
         self.conv = nn.Conv2d(cfg.filters, 1, 1)
         self.dense = nn.Linear(cfg.n * cfg.n, 1)
 
     def forward(self, x):
-        h = F.relu(self.conv(x)).flatten(1).float()
+        h = F.relu(flax_conv(self.conv, x, self.dtype)).flatten(1).float()
         out = self.dense(h)[:, 0]
         return torch.tanh(out) if self.tanh else out
 
 
 class TakNet(nn.Module):
-    """planes [B, C, N, N] -> (policy [B, A], value [B], ube [B]) in eval mode."""
+    """planes [B, C, N, N] -> (policy [B, A], value [B], ube [B]), float32.
+
+    Built in eval mode; ``net.train()`` switches BatchNorm to batch
+    statistics (and running-statistics updates) for the learner.
+    """
 
     def __init__(self, cfg: NetConfig):
         super().__init__()
@@ -112,8 +169,8 @@ class TakNet(nn.Module):
 
     def forward(self, planes):
         core = self.core(planes)
-        policy = self.policy(core).flatten(1).float()
-        return policy, self.value(core), self.ube(core)
+        policy = flax_conv(self.policy, core, self.cfg.compute_dtype).flatten(1).float()
+        return policy, self.value(core), self.ube(core.detach())
 
 
 def init_network(cfg: NetConfig, seed: int = 0) -> TakNet:

@@ -1,14 +1,17 @@
-"""Network input planes for a batch of Tak states.
+"""Network input planes for a batch of Tak states, and dense policy targets.
 
-Counterpart of ``takzero_tpu/ops/repr.py`` (``state_to_planes``), written
-out for a batch instead of ``vmap``: per side ("mine" first) the top-piece
-one-hots and 2N carry planes, four reserve ratios, the side-to-move plane
-and the flat-difference plane.  Output is ``[B, C, N, N]`` float32
-(channel-major, which is also torch's NCHW).
+Counterpart of ``takzero_tpu/ops/repr.py``.  ``state_to_planes`` is
+written out for a batch instead of ``vmap``: per side ("mine" first) the
+top-piece one-hots and 2N carry planes, four reserve ratios, the
+side-to-move plane and the flat-difference plane.  Output is
+``[B, C, N, N]`` float32 (channel-major, which is also torch's NCHW).
+``scatter_policy`` builds a batch's dense policy and legality mask on the
+device from sparse triples.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..tak.engine import TakEngine
@@ -77,3 +80,21 @@ def state_to_planes(eng: TakEngine, state: TakState) -> torch.Tensor:
     rest = scalars[:, :, None].expand(b, 6, s)
     planes = torch.cat([mine, opp, rest], dim=1)
     return planes.reshape(b, input_channels(n), n, n)
+
+
+def scatter_policy(t: int, a: int, rows, cols, probs, device="cpu"):
+    """Dense (policy f32[t, A], mask bool[t, A]) from sparse COO triples.
+
+    ``rows``, ``cols`` and ``probs`` are host arrays; only they travel to
+    ``device`` (a few KB instead of the dense [t, A] pair), and each output
+    is one ``index_put_`` there.  JAX pads the triples to power-of-two
+    buckets to bound its recompilations; eager torch needs no padding.
+    """
+    r = torch.as_tensor(np.asarray(rows, np.int64)).to(device)
+    c = torch.as_tensor(np.asarray(cols, np.int64)).to(device)
+    p = torch.as_tensor(np.asarray(probs, np.float32)).to(device)
+    policy = torch.zeros((t, a), dtype=torch.float32, device=device)
+    mask = torch.zeros((t, a), dtype=torch.bool, device=device)
+    policy.index_put_((r, c), p)
+    mask.index_put_((r, c), torch.ones_like(r, dtype=torch.bool))
+    return policy, mask

@@ -1,0 +1,269 @@
+"""Checkpoints with the reference's naming protocol, and the hash log.
+
+Counterpart of ``takzero_tpu/utils/ckpt.py``: a mutable
+``model_latest.ckpt`` (every N steps, weights only) plus immutable
+``model_{step:07d}.ckpt`` checkpoints that embed the SimHash seen-set;
+resume picks the highest-numbered one (learn/src/main.rs:107-120,
+270-290).  Writes are atomic (a temporary file, then a rename), so readers
+never see a torn file.
+
+Model files are the port's own format, not the JAX package's flax
+msgpack: ``torch.save`` of a dict of tensors only,
+
+    {"net": TakNet.state_dict(), "hash_matrix": f32[In, bits],
+     "hash_bits": int32[2**bits / 32]}   # hash_bits: step checkpoints only
+
+read back with ``torch.load(..., weights_only=True)``.  A JAX run's
+weights come over as numpy arrays through ``takzero_torch/bridge.py``.
+
+``hash_log.bin`` is the JAX package's file, byte for byte: an append-only
+log of bit indices as uint32 little-endian.  Replaying it through
+``bitset_set`` rebuilds the seen-set, so actors keep their bitset on the
+device and apply small deltas instead of reloading 512 MiB per model.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import os
+import pathlib
+import re
+import tempfile
+import threading
+import zipfile
+
+import numpy as np
+import torch
+
+_STEP_RE = re.compile(r"model_(\d+)\.ckpt$")
+HASH_LOG = "hash_log.bin"
+
+
+def strip_hash_bits(bundle: dict) -> dict:
+    """Weights-only view of a bundle (without the novelty bitset)."""
+    return {k: v for k, v in bundle.items() if k != "hash_bits"}
+
+
+def fresh_indices(idx, fresh) -> np.ndarray:
+    """Keep only the bits newly set by a batch, deduplicated, as uint32 LE.
+
+    ``(idx, fresh)`` come from ``models.agent.hash_indices_fresh``.  This
+    bounds ``hash_log.bin`` by the number of distinct bits ever set.
+    """
+    idx = torch.as_tensor(idx).cpu().numpy().ravel()
+    fresh = torch.as_tensor(fresh).cpu().numpy().ravel().astype(bool)
+    return np.unique(idx[fresh]).astype("<u4")
+
+
+def append_hash_indices(directory, idx) -> None:
+    """Append uint32 bit indices to the hash log (one write)."""
+    arr = np.ascontiguousarray(np.asarray(idx).ravel(), dtype="<u4")
+    if arr.size == 0:
+        return
+    with open(pathlib.Path(directory) / HASH_LOG, "ab") as f:
+        f.write(arr.tobytes())
+
+
+def read_hash_indices(path, offset: int):
+    """(uint32 indices appended since ``offset``, new offset)."""
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        return np.zeros((0,), np.uint32), offset
+    size -= size % 4  # ignore a torn trailing write
+    if size <= offset:
+        return np.zeros((0,), np.uint32), offset
+    with open(path, "rb") as f:
+        f.seek(offset)
+        data = f.read(size - offset)
+    return np.frombuffer(data, dtype="<u4"), size
+
+
+def reconcile_hash_log(directory, bits_host: np.ndarray) -> int:
+    """Append the bits set in ``bits_host`` (uint32 words) but absent from
+    the log; returns how many were appended.  Run once at learner resume:
+    a crash can leave the deferred log behind the checkpointed bitset."""
+    idx, _ = read_hash_indices(pathlib.Path(directory) / HASH_LOG, 0)
+    have = np.zeros(bits_host.size, np.uint32)
+    if idx.size:
+        np.bitwise_or.at(have, (idx >> 5).astype(np.int64), np.uint32(1) << (idx & 31))
+    missing = np.asarray(bits_host, np.uint32) & ~have
+    words = np.flatnonzero(missing)
+    if words.size == 0:
+        return 0
+    out = []
+    mw = missing[words]
+    for b in range(32):
+        hit = (mw >> np.uint32(b)) & np.uint32(1) != 0
+        if hit.any():
+            out.append((words[hit].astype(np.uint32) << 5) | np.uint32(b))
+    all_missing = np.concatenate(out)
+    append_hash_indices(directory, all_missing)
+    return int(all_missing.size)
+
+
+def checkpoint_state(bundle: dict, clone: bool = False) -> dict:
+    """The tensors a checkpoint of ``bundle`` holds (on the bundle's device).
+
+    ``clone`` copies them, for a snapshot that later in-place train steps
+    cannot change.
+    """
+    take = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
+    state = {"net": {k: take(v) for k, v in bundle["net"].state_dict().items()}}
+    for key in ("hash_matrix", "hash_bits"):
+        if key in bundle:
+            state[key] = take(bundle[key])
+    return state
+
+
+def _write(directory, name: str, state: dict) -> pathlib.Path:
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    host = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+            for k, v in state.items()}
+    path = directory / name
+    fd, tmp = tempfile.mkstemp(dir=directory, prefix=".tmp_ckpt_")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(host, f)
+        os.replace(tmp, path)  # atomic on POSIX
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def save_checkpoint(directory, name: str, bundle: dict) -> pathlib.Path:
+    return _write(directory, name, checkpoint_state(bundle))
+
+
+def read_checkpoint(path) -> dict:
+    """The tensors of a checkpoint file, on the CPU (tensors only are read)."""
+    if not zipfile.is_zipfile(path):
+        raise ValueError(
+            f"{path} is not a takzero_torch checkpoint (torch.save zip). A JAX run's "
+            "flax msgpack file cannot be loaded here: carry its weights over as numpy "
+            "arrays with takzero_torch.bridge.from_jax_bundle"
+        )
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_checkpoint(path, bundle: dict) -> dict:
+    """Load a checkpoint into ``bundle`` in place (its modules and tensors
+    keep their device); returns ``bundle``.
+
+    The structure must match: a missing or extra weight, or a bitset of
+    another size, raises.  A weights-only file (no ``hash_bits`` key)
+    leaves the bundle's bitset as it is.
+    """
+    state = read_checkpoint(path)
+    bundle["net"].load_state_dict(state["net"])
+    if ("hash_matrix" in state) != ("hash_matrix" in bundle) or ("hash_bits" in state and "hash_bits" not in bundle):
+        raise ValueError(f"{path}: novelty state {sorted(state)} does not fit this bundle {sorted(bundle)}")
+    with torch.no_grad():
+        for key in ("hash_matrix", "hash_bits"):
+            if key in state:
+                bundle[key].copy_(state[key])
+    bundle.pop("folded", None)
+    return bundle
+
+
+def model_path_with_most_steps(directory):
+    """(step, path) of the highest-numbered checkpoint, or None."""
+    directory = pathlib.Path(directory)
+    best = None
+    if not directory.is_dir():
+        return None
+    for p in directory.iterdir():
+        m = _STEP_RE.search(p.name)
+        if m:
+            step = int(m.group(1))
+            if best is None or step > best[0]:
+                best = (step, p)
+    return best
+
+
+def resume_with_hash_log(directory, bundle: dict, log, reconcile: bool):
+    """Load the highest-step checkpoint into ``bundle`` and, with
+    ``reconcile``, re-append the bitset's bits missing from the hash log.
+
+    Returns ``(bundle, steps)``; ``steps == 0`` means a fresh start (the
+    caller writes ``model_0000000.ckpt``)."""
+    resume = model_path_with_most_steps(directory)
+    if resume is None:
+        return bundle, 0
+    steps, path = resume
+    log.info("resuming from %s at step %d", path, steps)
+    load_checkpoint(path, bundle)
+    if reconcile:
+        bits = bundle["hash_bits"].cpu().numpy().view(np.uint32)
+        missing = reconcile_hash_log(directory, bits)
+        if missing:
+            log.info("hash log reconciled: %d bits re-appended", missing)
+    return bundle, steps
+
+
+class AsyncSaver:
+    """Background checkpoint writer.
+
+    ``submit`` snapshots the bundle at once (tensor copies on its device,
+    queued on the current stream before any later train step), and a
+    worker thread moves the snapshot to the host and writes it, so the
+    training loop keeps going.  Writes keep their order.  A failed write is
+    logged at once and re-raised at the next ``submit`` or ``drain``.
+    Submitting a name that is still queued replaces its snapshot (newest
+    wins), so slow saves coalesce instead of queueing without bound.
+    """
+
+    def __init__(self):
+        self._lock = threading.Condition()
+        self._order: collections.deque = collections.deque()
+        self._pending: dict = {}
+        self._errors: list = []
+        self._busy = False
+        self._log = logging.getLogger("ckpt")
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while True:
+            with self._lock:
+                while not self._order:
+                    self._lock.wait()
+                name = self._order.popleft()
+                directory, state = self._pending.pop(name)
+                self._busy = True
+            try:
+                _write(directory, name, state)
+            except Exception as e:  # logged now, re-raised at the next submit
+                self._log.error("async checkpoint save of %s failed: %s", name, e)
+                with self._lock:
+                    self._errors.append(e)
+            finally:
+                with self._lock:
+                    self._busy = False
+                    self._lock.notify_all()
+
+    def _raise_pending_errors(self):
+        with self._lock:
+            if self._errors:
+                err = self._errors[0]
+                self._errors.clear()
+                raise err
+
+    def submit(self, directory, name: str, bundle: dict):
+        self._raise_pending_errors()
+        state = checkpoint_state(bundle, clone=True)
+        with self._lock:
+            if name not in self._pending:
+                self._order.append(name)
+            self._pending[name] = (directory, state)  # newest wins
+            self._lock.notify_all()
+
+    def drain(self):
+        """Block until every queued save is on disk; re-raise the first error."""
+        with self._lock:
+            while self._order or self._busy:
+                self._lock.wait()
+        self._raise_pending_errors()
