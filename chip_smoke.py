@@ -54,11 +54,33 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    (CUDA events around 10 steps on one resident batch, after warm-up), the
    share of the loop's time spent assembling batches on the host, and peak
    device memory;
-9. a ``kernels`` JSON line: each kernel with what it replaces, its launches
-   on the move program (``launches``) and on the learner
-   (``learner_launches``), its error against the plain version, its device
-   time (``ms``), its call time (``call_ms``), the plain version's and the
-   library call's device times, and its bound.
+9. the actor-learner loop: kernel A against ``topk_plain`` at the loop's
+   f32[128, 944] with k=1, 128 and 944 on masked 4x4 logits and on the
+   adversarial rows, kernel B against ``simhash_plain`` on 4x4 planes,
+   both timed; then the three drivers at ``net4_simhash`` full width
+   (16x256 bf16, SimHash over 2^32 bits) in one temporary directory, the
+   search cut to batch 128, k=8, budget 24: the learner pre-trains (1,280
+   random-game targets, 10 steps) and publishes ``model_latest.ckpt``; the
+   selfplay driver plays until 128 games have finished; the learner takes
+   10 steps on its targets; the selfplay driver plays 2 more moves (its
+   poller must reload once, and its seen-set must equal ``bitset_set`` of
+   all of ``hash_log.bin``); the reanalyze driver takes 2 steps at batch
+   128 on the exploded replays; one train step runs on a batch of
+   ``targets-reanalyze.txt``.  It fails on a target line the port's parser
+   rejects, a policy that does not list exactly the legal actions of its
+   TPS, a replay that does not replay to its recorded result, a kernel
+   count other than (budget+1) per selfplay move and per reanalyze step,
+   or a non-finite value or loss.  The phase line gives selfplay moves/s,
+   targets/s and the host half's share of the move time, reanalyze
+   targets/s and the share of replay explosion, the learner's steps/s on
+   selfplay targets, peak device memory and the phase's seconds;
+10. a ``kernels`` JSON line: each kernel with what it replaces, its
+   launches on the move program (``launches``), on the learner
+   (``learner_launches``), on the selfplay driver and on reanalyze
+   (``selfplay_driver_launches``, ``reanalyze_launches``), its error
+   against the plain version, its device time (``ms``), its call time
+   (``call_ms``), the plain version's and the library call's device times,
+   its bound, and the same at the loop's 4x4 shape (``at_4x4``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
@@ -706,6 +728,228 @@ def run_learner_main_path(dev) -> dict:
     return launches
 
 
+def check_kernels_4x4(gen, dev) -> dict:
+    """Both kernels at the 4x4 shapes of the actor-learner loop: kernel A at
+    f32[128, 944] with k=1, 128 and 944 on masked 4x4 logits and on the
+    adversarial rows, kernel B on 4x4 planes; each timed at the loop's
+    shape (A: k=128)."""
+    import torch
+
+    from takzero_torch.models.network import NetConfig, simhash_matrix
+    from takzero_torch.ops import simhash, topk
+    from takzero_torch.ops.repr import input_channels, state_to_planes
+    from takzero_torch.tak.engine import engine
+
+    eng = engine(4, half_komi=4)
+    envs = random_positions(eng, 128, 24, gen, dev)
+    legal = eng.legal_mask(envs)
+    b, a = legal.shape
+    rows = torch.where(legal, torch.randn(b, a, generator=gen, device=dev), NEG).contiguous()
+    hard = adversarial_rows(a, gen, dev)
+    for k in (1, 128, a):
+        expect_topk_equal(rows, k, f"4x4 masked logits k={k}")
+        expect_topk_equal(hard, k, f"4x4 adversarial rows k={k}")
+    k = 128
+    a_out = dict(shape=[b, a], k=k, max_abs_err=0.0,
+                 kernel_ms=device_ms(lambda: topk.exact_top_k_unsorted(rows, k))[0],
+                 plain_ms=device_ms(lambda: topk.topk_plain(rows, k))[0],
+                 library_ms=device_ms(lambda: torch.topk(rows, k, sorted=False))[0])
+    a_out["bound_ms"], a_out["bound_by"] = bound_ms(b * a * 4 + b * k * 8, b * a)
+
+    planes = state_to_planes(eng, envs)
+    planes[:, input_channels(4) - 2] = 0.0
+    x = planes.reshape(b, -1).contiguous()
+    m = simhash_matrix(NetConfig(n=4, hash_bits=32), seed=0).to(dev)
+    inp, bits = m.shape
+    b_out = dict(shape=[b, inp, bits], max_abs_err=expect_simhash_equal(x, m, "4x4 planes, 32 bits"),
+                 kernel_ms=device_ms(lambda: simhash.simhash_pack(x, m))[0],
+                 plain_ms=device_ms(lambda: simhash.simhash_plain(x, m))[0], library_ms=None)
+    b_out["bound_ms"], b_out["bound_by"] = bound_ms(b * inp * 4 + inp * bits * 4 + b * 8, 2 * b * inp * bits)
+    log({"phase": "kernels at 4x4", "exact_top_k_unsorted": a_out, "simhash_pack": b_out})
+    return {"exact_top_k_unsorted": a_out, "simhash_pack": b_out}
+
+
+def _launch_counts() -> dict:
+    from takzero_torch.ops import simhash, topk
+
+    return {"exact_top_k_unsorted": topk.exact_top_k_unsorted.launches,
+            "simhash_pack": simhash.simhash_pack.launches}
+
+
+def _zero_launch_counts() -> None:
+    from takzero_torch.ops import simhash, topk
+
+    topk.exact_top_k_unsorted.launches = 0
+    simhash.simhash_pack.launches = 0
+
+
+def _expect_launches(what: str, per: int, count: int) -> dict:
+    """Read the counters; each kernel must have launched ``per * count`` times."""
+    got = _launch_counts()
+    for name, n in got.items():
+        if n != per * count:
+            raise AssertionError(f"{what}: {name} launched {n} times, expected {per} x {count}")
+    return got
+
+
+def check_target_lines(eng, text: str, what: str) -> int:
+    """Every line parses; every policy lists exactly the legal actions of
+    its TPS; every value, UBE and probability is finite.  Returns the count."""
+    import numpy as np
+    import torch
+
+    from takzero_torch.data.native_loader import parse_targets
+
+    lines = text.count("\n")
+    states, value, ube, actions, probs, offsets = parse_targets(eng.n, text)
+    if len(value) != lines:
+        raise AssertionError(f"{what}: the parser rejects {lines - len(value)} of {lines} lines")
+    if not (np.isfinite(value).all() and np.isfinite(ube).all() and np.isfinite(probs).all()):
+        raise AssertionError(f"{what}: non-finite value, UBE or probability")
+    legal = eng.legal_mask(states)
+    row = torch.from_numpy(np.repeat(np.arange(len(value)), np.diff(offsets)))
+    listed = torch.zeros_like(legal)
+    listed[row, torch.from_numpy(actions.astype(np.int64))] = True
+    counts = torch.from_numpy(np.diff(offsets))
+    bad = (listed != legal).any(-1) | (counts != legal.sum(-1))
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} policies do not list exactly the legal actions")
+    return lines
+
+
+def check_replays(eng, lines: list, what: str) -> int:
+    """Every replay replays on the port's engine through ongoing positions to
+    its recorded result (replays without a result stop early and are
+    checked as ongoing).  Returns the count."""
+    import numpy as np
+    import torch
+
+    from takzero_torch.data.native_loader import parse_replay_positions
+    from takzero_torch.data.target import Replay, result_str_from
+
+    replays = [Replay.from_line(eng.n, line) for line in lines]
+    states, _ = parse_replay_positions(eng.n, eng.half_komi, eng.reversible_limit, "\n".join(lines) + "\n")
+    lengths = np.array([len(r.actions) for r in replays])
+    if len(states.ply) != lengths.sum():
+        raise AssertionError(f"{what}: {lengths.sum()} moves but {len(states.ply)} positions")
+    if bool((eng.terminal_kind(states) != 0).any()):
+        raise AssertionError(f"{what}: a game went on past its end")
+    last = torch.from_numpy(np.cumsum(lengths) - 1)
+    final = eng.step(states.map(lambda x: x[last]), torch.tensor([r.actions[-1] for r in replays]))
+    res, roads = eng.game_result(final).tolist(), eng._roads(final).tolist()
+    for r, g, road in zip(replays, res, roads):
+        want = "" if g == -1 else result_str_from(g, road[g] if g in (0, 1) else False)
+        if want != r.result:
+            raise AssertionError(f"{what}: replay ends in {want!r}, recorded {r.result!r}: {r.to_line()}")
+    return len(replays)
+
+
+def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: int = 8, budget: int = 24,
+                   games: int = 128) -> dict:
+    """The actor-learner loop through the three drivers in one directory."""
+    import json
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.data.native_loader import make_batch_native
+    from takzero_torch.drivers import learn, reanalyze, selfplay
+    from takzero_torch.models.agent import new_agent
+    from takzero_torch.ops.bitset import bitset_init, bitset_set
+    from takzero_torch.parallel import coordinator as co
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.train.learner import make_optimizer, make_train_step
+    from takzero_torch.utils import ckpt
+
+    t_phase = time.perf_counter()
+    cfg = NET_PRESETS[net]
+    eng = engine(cfg.n, half_komi=cfg.half_komi)
+    per_move = budget + 1
+    with tempfile.TemporaryDirectory(prefix="takzero_loop_") as d:
+        common = ["--directory", d, "--net", net, "--device", str(dev)]
+        search = ["--batch", str(batch), "--sampled", str(sampled), "--budget", str(budget)]
+        learner = common + ["--batch-size", str(batch), "--no-wait"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        # 1. Pre-training publishes model_latest.ckpt and hash_log.bin.
+        learn.main(learner + ["--seed", "0", "--pretrain-targets", str(10 * batch), "--pretrain-steps", "10",
+                              "--max-steps", "0"])
+        # 2. Selfplay until `games` games have finished.
+        _zero_launch_counts()
+        sp = selfplay.main(common + search + ["--seed", "1", "--max-games", str(games)])
+        del sp["agent"]
+        sp_launches = _expect_launches("selfplay driver", per_move, sp["moves"])
+        # 3. Ten learner steps on the selfplay targets.
+        lr = learn.main(learner + ["--seed", "2", "--pretrain-steps", "0", "--max-steps", "10"])
+        if lr["steps"] != 10:
+            raise AssertionError(f"the learner took {lr['steps']} steps on selfplay targets, expected 10")
+        # 4. Two more moves: one reload, and the seen-set of the whole log.
+        _zero_launch_counts()
+        sp2 = selfplay.main(common + search + ["--seed", "3", "--max-steps", "2"])
+        _expect_launches("selfplay driver, 2 moves", per_move, 2)
+        if sp2["reloads"] != 1:
+            raise AssertionError(f"the selfplay poller reloaded {sp2['reloads']} times, expected 1")
+        idx, _ = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)
+        seen = bitset_set(bitset_init(cfg.hash_bits, dev), torch.from_numpy(idx.astype(np.int64)).to(dev))
+        if not torch.equal(seen, sp2["agent"]["hash_bits"]):
+            raise AssertionError("the selfplay actor's seen-set differs from bitset_set of hash_log.bin")
+        sp2_replays = sp2["replays"]
+        del sp2, seen
+        # 5. Two reanalyze steps on the exploded replays.
+        _zero_launch_counts()
+        re = reanalyze.main(common + search + ["--seed", "4", "--min-positions", str(batch), "--max-steps", "2"])
+        re_launches = _expect_launches("reanalyze", per_move, re["steps"])
+        if re["steps"] != 2 or re["targets"] != 2 * batch:
+            raise AssertionError(f"reanalyze: {re['steps']} steps and {re['targets']} targets")
+        # 6. One train step on reanalyze targets (the learner mixes them in
+        # only after step 5,000).
+        re_text = open(f"{d}/{co.TARGETS_REANALYZE}", encoding="utf-8").read()
+        agent = ckpt.load_checkpoint(ckpt.latest_path(d), new_agent(cfg, seed=5, device=dev))
+        first = "\n".join(re_text.splitlines()[:batch]) + "\n"
+        batch_re = make_batch_native(eng, first, np.random.default_rng(0), device=dev)
+        m = {k: float(v) for k, v in make_train_step(cfg)(agent, make_optimizer(agent), batch_re, True).items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        # The files: lines, policies, replays, losses.
+        sp_lines = check_target_lines(eng, open(f"{d}/{co.TARGETS_SELFPLAY}", encoding="utf-8").read(),
+                                      "targets-selfplay.txt")
+        re_lines = check_target_lines(eng, re_text, "targets-reanalyze.txt")
+        replays = open(f"{d}/{co.REPLAYS}", encoding="utf-8").read().splitlines()
+        n_replays = check_replays(eng, replays, "replays.txt")
+        rows = [json.loads(x) for x in open(f"{d}/metrics.jsonl", encoding="utf-8").read().splitlines()]
+        losses = [r[k] for r in rows for k in ("loss", "loss_policy", "loss_value", "loss_ube")] + list(m.values())
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError("non-finite loss on the loop")
+        if n_replays != sp["replays"] + sp2_replays or sp["replays"] < games:
+            raise AssertionError(f"{n_replays} replays in the file, the drivers finished "
+                                 f"{sp['replays']} + {sp2_replays} games (at least {games} expected)")
+
+    out = {
+        "phase": "actor-learner loop", "card": card_line(),
+        "net": f"{net} ({cfg.blocks}x{cfg.filters} {str(cfg.compute_dtype).split('.')[-1]}, SimHash 2^{cfg.hash_bits})",
+        "cuts": {"batch": batch, "sampled": sampled, "budget": budget, "pretrain_targets": 10 * batch,
+                 "pretrain_steps": 10, "learner_steps": 10, "reanalyze_steps": 2},
+        "selfplay": {"moves": sp["moves"], "games": sp["replays"], "targets": sp["targets"],
+                     "moves_per_s": sp["moves"] / sp["seconds"], "targets_per_s": sp["targets"] / sp["seconds"],
+                     "host_half_share": sp["host_seconds"] / sp["seconds"],
+                     "write_share": sp["write_seconds"] / sp["seconds"], "seconds": sp["seconds"]},
+        "reanalyze": {"steps": re["steps"], "targets": re["targets"], "positions": re["positions"],
+                      "targets_per_s": re["targets"] / re["seconds"],
+                      "explosion_share": re["explode_seconds"] / re["seconds"],
+                      "host_share": re["host_seconds"] / re["seconds"], "seconds": re["seconds"]},
+        "learner_on_selfplay_targets": {"steps_per_s": lr["steps"] / lr["seconds"],
+                                        "host_assembly_share": lr["assemble_seconds"] / lr["seconds"]},
+        "reanalyze_train_step": m, "lines_checked": {"selfplay": sp_lines, "reanalyze": re_lines,
+                                                     "replays": n_replays},
+        "launches": {"selfplay_driver": sp_launches, "reanalyze": re_launches, "per_move_or_step": per_move},
+        "peak_memory_gb": peak_gb, "seconds": time.perf_counter() - t_phase,
+    }
+    log(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -745,6 +989,8 @@ def main() -> int:
     launches, _ = run_main_path(dev)
     check_learner_small_reference(dev)
     learner_launches = run_learner_main_path(dev)
+    at_4x4 = check_kernels_4x4(gen, dev)
+    loop = run_actor_loop(dev)
 
     kernels = []
     for name, out, source, replaces in (
@@ -755,6 +1001,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "checked": True, "launches": launches[name], "learner_launches": learner_launches[name],
+            "selfplay_driver_launches": loop["launches"]["selfplay_driver"][name],
+            "reanalyze_launches": loop["launches"]["reanalyze"][name], "at_4x4": at_4x4[name],
             "max_abs_err": out["max_abs_err"],
             "ms": out["kernel_ms"], "call_ms": out["call_ms"], "plain_ms": out["plain_ms"],
             "bound_ms": out["bound_ms"], "bound_by": out["bound_by"], "library_ms": out["library_ms"],

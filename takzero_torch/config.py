@@ -57,3 +57,20 @@ class LearnConfig:
     reanalyze_forced_uses: int = 4
     min_seconds_between_reads: float = 10.0
     sleep_when_starved: float = 30.0
+
+
+@dataclass(frozen=True)
+class ReanalyzeConfig:
+    """reanalyze/src/main.rs:33-49."""
+
+    batch_size: int = 128
+    min_positions: int = 128_000
+    max_reanalyze_buffer: int = 32_000
+    sampled_actions: int = 64
+    search_budget: int = 768
+    max_children: int = 128
+    max_depth: int = 48
+    ube_target_beta: float = 0.25
+
+
+MAX_SELFPLAY_BUFFER_LEN = 32_000  # backpressure (selfplay:43)

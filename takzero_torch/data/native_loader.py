@@ -1,10 +1,12 @@
-"""Target-line parsing and training-batch assembly.
+"""Target-line parsing, replay explosion and training-batch assembly.
 
 Counterpart of the functions of ``takzero_tpu/data/native_loader.py``
-that the learner calls, under the same names.  The JAX package parses
-with its C++ library (``takzero_tpu/cpp/tak_io.cpp``); the port parses in
-Python through its own ``tak/tps.py`` and ``data/target.py`` and keeps the
-reference learner's tolerance: a malformed line is dropped, not raised.
+that the learner and reanalyze call, under the same names.  The JAX
+package parses with its C++ library (``takzero_tpu/cpp/tak_io.cpp``); the
+port parses in Python through its own ``tak/tps.py`` and ``tak/moves.py``
+and keeps the reference's tolerance: a malformed line is dropped, not
+raised.  Replays are exploded by stepping all replays of one read together
+on the port's engine, one batched ``step`` per ply.
 
 ``make_batch_native`` draws one symmetry per target exactly as the JAX
 function does (``rng.integers(0, 8, size=t)`` on a numpy ``Generator``),
@@ -20,13 +22,41 @@ import functools
 import numpy as np
 import torch
 
+from ..data.target import RESULTS
 from ..device import resolve_device
 from ..ops.repr import scatter_policy, state_to_planes
 from ..tak.moves import ptn_to_action
 from ..tak.state import TakState, initial_state_batch
 from ..tak.symmetry import action_maps, transform_state
+from ..tak.engine import engine
 from ..tak.tps import tps_fields
 from ..train.learner import Batch
+
+
+def state_size(n: int) -> int:
+    """Columns of a packed position row (``pack_rows``, ``unpack_states``)."""
+    return 3 * n * n + 7
+
+
+def unpack_states(n: int, buf: np.ndarray) -> TakState:
+    """int64[T, state_size] rows -> batched TakState on the CPU.
+
+    A row is height [S], the int64 colour fields [S], tops [S], reserves
+    [4], to_move, ply, reversible: the JAX package's layout, whose colour
+    column holds the same 64 bits.
+    """
+    s = n * n
+    buf = torch.from_numpy(np.ascontiguousarray(buf, np.int64).reshape(-1, state_size(n)))
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    return TakState(
+        height=i32(buf[:, :s]),
+        owner=buf[:, s : 2 * s].contiguous(),
+        tops=i32(buf[:, 2 * s : 3 * s]),
+        reserves=i32(buf[:, 3 * s : 3 * s + 4]).reshape(-1, 2, 2),
+        to_move=i32(buf[:, 3 * s + 4]),
+        ply=i32(buf[:, 3 * s + 5]),
+        reversible=i32(buf[:, 3 * s + 6]),
+    )
 
 
 @functools.lru_cache(maxsize=1 << 16)
@@ -91,6 +121,62 @@ def valid_target_lines(n: int, lines: list[str]) -> list[str]:
     text = "\n".join(line.rstrip("\n") for line in lines) + "\n"
     *_, idx = parse_targets(n, text, return_lines=True)
     return [lines[i] for i in idx]
+
+
+def _parse_replay(n: int, raw: str):
+    """(start TPS fields, actions) of one replay line, or None where the
+    C++ parser (``tak_parse_replays``) skips the line: no ``[TPS "..."]``
+    head, a bad TPS, or a bad move token.  Tokens end at a result."""
+    line = raw.rstrip("\r ")
+    if len(line) <= 8 or not line.startswith('[TPS "'):
+        return None
+    end = line.find('"]', 6)
+    if end < 0:
+        return None
+    try:
+        fields = tps_fields(n, line[6:end])
+        actions = []
+        for tok in line[end + 2 :].split(" "):
+            if not tok:
+                continue
+            if tok in RESULTS:
+                break
+            actions.append(_action(n, tok))
+    except (ValueError, IndexError):
+        return None
+    return fields, actions
+
+
+def parse_replay_positions(n: int, half_komi: int, reversible_limit: int, text: str):
+    """Explode replay lines into the position before every action.
+
+    -> (states TakState[P] on the CPU, plies int32[P]), in replay order,
+    then in ply order (reference reanalyze/src/main.rs:269-290).  All
+    replays are stepped together: one batched ``eng.step`` per ply.
+    """
+    eng = engine(n, half_komi=half_komi, reversible_limit=reversible_limit)
+    parsed = [p for p in (_parse_replay(n, raw) for raw in text.split("\n")) if p is not None]
+    parsed = [p for p in parsed if p[1]]
+    if not parsed:
+        return initial_state_batch(n, 0), np.zeros(0, np.int32)
+    lengths = np.array([len(a) for _, a in parsed])
+    plies = int(lengths.max())
+    state = TakState(**{k: torch.from_numpy(np.stack([f[k] for f, _ in parsed])) for k in TakState._fields})
+    actions = np.zeros((len(parsed), plies), np.int64)
+    for i, (_, acts) in enumerate(parsed):
+        actions[i, : len(acts)] = acts
+    actions = torch.from_numpy(actions)
+    snapshots = []  # TakState[L] before ply j, for j < plies
+    for j in range(plies):
+        snapshots.append(state)
+        if j + 1 < plies:
+            state = eng.step(state, actions[:, j])
+    stacked = TakState(*(torch.stack(x) for x in zip(*snapshots)))  # [plies, L, ...]
+    line = np.repeat(np.arange(len(parsed)), lengths)
+    ply = np.concatenate([np.arange(k) for k in lengths])
+    li, pi = torch.from_numpy(line), torch.from_numpy(ply)
+    states = stacked.map(lambda x: x[pi, li])
+    return states, states.ply.numpy()
 
 
 def augment_states(n: int, states: TakState, syms: np.ndarray) -> TakState:

@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import os
 import time
 
 import numpy as np
@@ -40,6 +39,8 @@ from ..tak.engine import engine
 from ..train.data import random_pretraining_targets
 from ..train.learner import make_optimizer, make_train_step, make_train_step_chunk
 from ..utils import ckpt
+from ..utils.profile import StepTrace
+from . import refuse_unported
 
 log = logging.getLogger("learn")
 
@@ -84,22 +85,12 @@ def main(argv=None) -> dict:
                         "never cross a checkpoint boundary.")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     parser.add_argument("--devices", type=int, default=None, help="not ported")
-    parser.add_argument("--profile", default=None, metavar="DIR", help="not ported")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler Chrome trace of chunks 2-4 to DIR")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    if args.devices is not None or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "takzero_torch learns on one device: --devices and multihost runs are not "
-            "ported yet (ROADMAP.md queue 1, item 11)"
-        )
-    if args.profile is not None:
-        raise NotImplementedError("--profile is not ported yet (ROADMAP.md queue 1, item 7)")
-    if args.net in NOT_PORTED_PRESETS:
-        raise NotImplementedError(
-            f"--net {args.net}: takzero_torch ports the simhash and none novelty variants; "
-            "RND, ensemble and lcghash nets are not ported yet"
-        )
+    refuse_unported(args)
     dev = resolve_device(args.device)
 
     cfg = LearnConfig(
@@ -198,7 +189,10 @@ def main(argv=None) -> dict:
         last_flush[0] = now
         co.append_lines(args.directory, "metrics.jsonl", jsonl)
 
+    trace = StepTrace(args.profile, log, device=dev)
+
     def finish(loop_steps: int, t_loop: float, assemble_s: float) -> dict:
+        trace.stop()
         for item in pending_metrics:
             flush_metrics(item)
         # Always leave a final latest for downstream consumers.
@@ -212,6 +206,7 @@ def main(argv=None) -> dict:
     model_steps = steps
     t_loop, assemble_s = time.perf_counter(), 0.0
     while target_steps is None or model_steps < target_steps:
+        trace.step()
         first = model_steps + 1
         using_reanalyze = args.restart_targets is not None or first >= cfg.steps_before_reanalyze
         c = chunk_len(model_steps, chunk_steps, cfg, cross_reanalyze=using_reanalyze,

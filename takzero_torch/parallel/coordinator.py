@@ -1,9 +1,10 @@
 """Shared-filesystem actor-learner coordination protocol.
 
-The port's own copy of the parts of ``takzero_tpu/parallel/coordinator.py``
-that the learner uses.  Processes coordinate through a shared directory:
-append-only target files tailed through persistent byte offsets, and a
-checksummed ``buffer_lengths.txt`` for backpressure.  The file names and
+The port's own copy of the single-host parts of
+``takzero_tpu/parallel/coordinator.py``.  Processes coordinate through a
+shared directory: append-only target and replay files tailed through
+persistent byte offsets, and a checksummed ``buffer_lengths.txt`` that the
+learner writes and the actors wait on (backpressure).  The file names and
 formats are those of the JAX package (and of the reference), because JAX
 and torch processes may share one run directory.
 """
@@ -11,6 +12,7 @@ and torch processes may share one run directory.
 from __future__ import annotations
 
 import pathlib
+import time
 
 TARGETS_SELFPLAY = "targets-selfplay.txt"
 TARGETS_REANALYZE = "targets-reanalyze.txt"
@@ -94,3 +96,22 @@ def read_buffer_lengths(directory) -> tuple[int, int] | None:
     if s + r != c:
         return None
     return s, r
+
+
+def backpressure_hit(directory, max_buffer: int, which: int = 0) -> bool:
+    """One non-blocking check: is buffer ``which`` (0 selfplay, 1
+    reanalyze) over ``max_buffer``?  A missing or torn file is no hit."""
+    lengths = read_buffer_lengths(directory)
+    return lengths is not None and lengths[which] > max_buffer
+
+
+def wait_for_backpressure(directory, max_buffer: int, which: int = 0, poll_seconds: float = 1.0,
+                          max_wait: float | None = None) -> None:
+    """Sleep while our buffer is over ``max_buffer`` (selfplay:93-104), at
+    most ``max_wait`` seconds when it is given."""
+    waited = 0.0
+    while backpressure_hit(directory, max_buffer, which):
+        if max_wait is not None and waited >= max_wait:
+            return
+        time.sleep(poll_seconds)
+        waited += poll_seconds

@@ -28,8 +28,12 @@ def root_children(tree: Tree) -> dict:
     )
 
 
-def improved_policy(tree: Tree, visitations: float) -> torch.Tensor:
-    """[B, C] improved policy over root slots (softmax over valid slots)."""
+def improved_policy(tree: Tree, visitations) -> torch.Tensor:
+    """[B, C] improved policy over root slots (softmax over valid slots).
+
+    ``visitations`` is one count for every root (a float) or one per root
+    (a [B] tensor, as reanalyze passes the most visited child's count).
+    """
     ch = root_children(tree)
     valid = ch["action"] >= 0
     needs_init = (ch["node"] < 0) & (ch["flag"] == ev.VALUE) & (ch["visit"] == 0)
@@ -37,11 +41,19 @@ def improved_policy(tree: Tree, visitations: float) -> torch.Tensor:
     completed = torch.where(
         needs_init, root_f[:, None], ev.negated_float(ch["flag"], ch["ply"], ch["value"])
     )
-    sqrt_v = torch.sqrt(torch.tensor(visitations, dtype=torch.float32)).item()
+    if isinstance(visitations, torch.Tensor):
+        sqrt_v = torch.sqrt(visitations.to(torch.float32))[:, None]
+    else:
+        sqrt_v = torch.sqrt(torch.tensor(visitations, dtype=torch.float32)).item()
     score = torch.where(valid, ch["logit"] + completed * sqrt_v, -torch.inf)
     score = score - score.max(-1, keepdim=True).values
     e = torch.where(valid, torch.exp(score), 0.0)
     return e / e.sum(-1, keepdim=True).clamp(min=1e-30)
+
+
+def most_visited_count(tree: Tree) -> torch.Tensor:
+    """[B] visits of the most visited root child."""
+    return tree.child_visit[:, 0, :].max(-1).values
 
 
 def ube_target(tree: Tree, beta: float) -> torch.Tensor:

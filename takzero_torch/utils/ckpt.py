@@ -7,6 +7,8 @@ resume picks the highest-numbered one (learn/src/main.rs:107-120,
 270-290).  Writes are atomic (a temporary file, then a rename), so readers
 never see a torn file.
 
+Actors follow the learner through :class:`LatestPoller`.
+
 Model files are the port's own format, not the JAX package's flax
 msgpack: ``torch.save`` of a dict of tensors only,
 
@@ -28,13 +30,15 @@ import collections
 import logging
 import os
 import pathlib
+import pickle
 import re
 import tempfile
 import threading
-import zipfile
 
 import numpy as np
 import torch
+
+from ..ops.bitset import bitset_set
 
 _STEP_RE = re.compile(r"model_(\d+)\.ckpt$")
 HASH_LOG = "hash_log.bin"
@@ -138,10 +142,30 @@ def save_checkpoint(directory, name: str, bundle: dict) -> pathlib.Path:
     return _write(directory, name, checkpoint_state(bundle))
 
 
+class ForeignCheckpoint(ValueError):
+    """A file that is not in the port's format (a JAX run's flax msgpack)."""
+
+
+class CheckpointMismatch(RuntimeError):
+    """A checkpoint whose structure does not fit the bundle it is loaded into."""
+
+
+_ZIP_MAGIC = b"PK\x03\x04"  # torch.save writes a zip archive
+
+
 def read_checkpoint(path) -> dict:
-    """The tensors of a checkpoint file, on the CPU (tensors only are read)."""
-    if not zipfile.is_zipfile(path):
-        raise ValueError(
+    """The tensors of a checkpoint file, on the CPU (tensors only are read).
+
+    Raises :class:`ForeignCheckpoint` for a file of another format; a torn
+    or truncated file of the port's raises ``ValueError`` or torch's
+    ``RuntimeError``.
+    """
+    with open(path, "rb") as f:
+        head = f.read(len(_ZIP_MAGIC))
+    if len(head) < len(_ZIP_MAGIC):
+        raise ValueError(f"{path}: truncated checkpoint ({len(head)} bytes)")
+    if head != _ZIP_MAGIC:
+        raise ForeignCheckpoint(
             f"{path} is not a takzero_torch checkpoint (torch.save zip). A JAX run's "
             "flax msgpack file cannot be loaded here: carry its weights over as numpy "
             "arrays with takzero_torch.bridge.from_jax_bundle"
@@ -149,18 +173,44 @@ def read_checkpoint(path) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _check_fits(path, state: dict, bundle: dict) -> None:
+    """Raise :class:`CheckpointMismatch` unless every tensor of ``state``
+    has its place in ``bundle`` with the same shape and dtype, and every
+    weight of the bundle's net is in ``state``."""
+    want = {f"net.{k}": v for k, v in bundle["net"].state_dict().items()}
+    want.update({k: bundle[k] for k in ("hash_matrix", "hash_bits") if k in bundle})
+    net = state.get("net")
+    if not isinstance(net, dict):
+        raise CheckpointMismatch(f"{path}: no 'net' weights")
+    have = {f"net.{k}": v for k, v in net.items()}
+    have.update({k: v for k, v in state.items() if k != "net"})
+    missing = sorted(k for k in want if k.startswith("net.") and k not in have)
+    if ("hash_matrix" in want) != ("hash_matrix" in have):
+        missing.append("hash_matrix")
+    extra = sorted(set(have) - set(want))
+    if missing or extra:
+        raise CheckpointMismatch(f"{path}: does not fit the bundle: missing {missing}, unexpected {extra}")
+    for k, v in have.items():
+        if not isinstance(v, torch.Tensor) or v.shape != want[k].shape or v.dtype != want[k].dtype:
+            got = (tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else type(v).__name__
+            raise CheckpointMismatch(
+                f"{path}: {k} is {got}, the bundle holds {(tuple(want[k].shape), want[k].dtype)}"
+            )
+
+
 def load_checkpoint(path, bundle: dict) -> dict:
     """Load a checkpoint into ``bundle`` in place (its modules and tensors
     keep their device); returns ``bundle``.
 
-    The structure must match: a missing or extra weight, or a bitset of
-    another size, raises.  A weights-only file (no ``hash_bits`` key)
-    leaves the bundle's bitset as it is.
+    The whole file is checked against the bundle (keys, shapes, dtypes,
+    bitset size) before the first tensor is copied, so a file that does
+    not fit raises :class:`CheckpointMismatch` and leaves every tensor as
+    it was.  A weights-only file (no ``hash_bits`` key) leaves the
+    bundle's bitset as it is.
     """
     state = read_checkpoint(path)
+    _check_fits(path, state, bundle)
     bundle["net"].load_state_dict(state["net"])
-    if ("hash_matrix" in state) != ("hash_matrix" in bundle) or ("hash_bits" in state and "hash_bits" not in bundle):
-        raise ValueError(f"{path}: novelty state {sorted(state)} does not fit this bundle {sorted(bundle)}")
     with torch.no_grad():
         for key in ("hash_matrix", "hash_bits"):
             if key in state:
@@ -202,6 +252,68 @@ def resume_with_hash_log(directory, bundle: dict, log, reconcile: bool):
         if missing:
             log.info("hash log reconciled: %d bits re-appended", missing)
     return bundle, steps
+
+
+def latest_path(directory) -> pathlib.Path:
+    return pathlib.Path(directory) / "model_latest.ckpt"
+
+
+class LatestPoller:
+    """An actor's view of the learner's ``model_latest.ckpt`` and
+    ``hash_log.bin`` (selfplay/src/main.rs:89-125).
+
+    ``reload_if_changed`` ORs the hash-log indices appended since the last
+    call into the bundle's seen-set, in place, with ``bitset_set``, and
+    reloads the weights only when the file's ``(mtime_ns, size)`` changed.
+    A weights-only file leaves the seen-set to the hash log (the rule of
+    :func:`load_checkpoint`); ``hash_matrix`` comes with the file, so the
+    actor hashes as the learner does from its first reload on.
+
+    A torn or truncated read keeps the current weights, logs why, and is
+    tried again at the next call.  A file of another format
+    (:class:`ForeignCheckpoint`) or structure (:class:`CheckpointMismatch`)
+    raises: trying again would not help.
+    """
+
+    def __init__(self, directory):
+        self._path = latest_path(directory)
+        self._hash_path = pathlib.Path(directory) / HASH_LOG
+        self._hash_off = 0
+        self._sig = None
+        self.reloads = 0  # weight reloads so far
+
+    def _apply_hash_delta(self, bundle: dict) -> bool:
+        if "hash_bits" not in bundle:
+            return False
+        idx, self._hash_off = read_hash_indices(self._hash_path, self._hash_off)
+        if idx.size == 0:
+            return False
+        bits = bundle["hash_bits"]
+        bitset_set(bits, torch.from_numpy(idx.astype(np.int64)).to(bits.device))
+        return True
+
+    def reload_if_changed(self, bundle: dict, log=None):
+        """``(bundle, changed)``: the bundle updated in place, and whether
+        its weights or its seen-set changed."""
+        hash_changed = self._apply_hash_delta(bundle)
+        try:
+            st = os.stat(self._path)
+        except OSError:
+            return bundle, hash_changed
+        sig = (st.st_mtime_ns, st.st_size)
+        if sig == self._sig:
+            return bundle, hash_changed
+        try:
+            load_checkpoint(self._path, bundle)
+        except (ForeignCheckpoint, CheckpointMismatch):
+            raise
+        except (OSError, ValueError, RuntimeError, EOFError, pickle.UnpicklingError) as e:  # a torn read
+            if log is not None:
+                log.warning("cannot load %s (%s), keeping the current weights", self._path, e)
+            return bundle, hash_changed
+        self._sig = sig
+        self.reloads += 1
+        return bundle, True
 
 
 class AsyncSaver:

@@ -36,7 +36,7 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 42, out.stdout  # every module of the port was imported
+    assert count >= 46, out.stdout  # every module of the port was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -44,7 +44,7 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
 
     from takzero_torch import bench
     from takzero_torch.data.native_loader import make_batch_native
-    from takzero_torch.drivers import learn
+    from takzero_torch.drivers import learn, reanalyze, selfplay
     from takzero_torch.train.data import random_pretraining_targets
     from takzero_torch.device import resolve_device
     from takzero_torch.models.agent import make_net_evaluate, new_agent
@@ -68,6 +68,11 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         learn.main(["--directory", str(tmp_path), "--net", "tiny3", "--no-wait", "--max-steps", "0"])
     assert not any(tmp_path.iterdir())
+    # The actors: both drivers without --device.
+    for actor in (selfplay, reanalyze):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            actor.main(["--directory", str(tmp_path), "--net", "tiny3", "--max-steps", "1"])
+        assert not any(tmp_path.iterdir())
     with pytest.raises(RuntimeError, match="CUDA"):
         make_batch_native(eng, "x,x,x/x,x,x/x,x,x 1 1;0;0;a1:1\n", np.random.default_rng(0))
     with pytest.raises(RuntimeError, match="CUDA"):

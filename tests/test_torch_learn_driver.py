@@ -103,8 +103,6 @@ def test_learn_driver_refuses_what_is_not_ported(tmp_path, monkeypatch):
         _learn(tmp_path, "--devices", "2")
     with pytest.raises(NotImplementedError, match="RND"):
         _learn(tmp_path, "--net", "net4_rnd")
-    with pytest.raises(NotImplementedError, match="profile"):
-        _learn(tmp_path, "--profile", str(tmp_path))
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="multihost"):
         _learn(tmp_path)

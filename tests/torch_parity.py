@@ -115,6 +115,16 @@ def move_draws(key, batch: int, children: int) -> dict:
     )
 
 
+def search_draws(key, batch: int, children: int) -> torch.Tensor:
+    """The root Gumbel draw of a JAX search given ``key`` itself.
+
+    JAX's ``make_reanalyze_step`` passes its key straight to the search,
+    which draws ``jax.random.gumbel(key, (B, C))``; do not use
+    :func:`move_draws` for it, whose split gives other Gumbels.
+    """
+    return _as_t(jax.random.gumbel(key, (batch, children)), torch.float32)
+
+
 def tall_states(n, batch, seed):
     """Random positions with stacks of up to 56 pieces (colour bits above 32).
 
