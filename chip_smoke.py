@@ -74,13 +74,42 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    targets/s and the host half's share of the move time, reanalyze
    targets/s and the share of replay explosion, the learner's steps/s on
    selfplay targets, peak device memory and the phase's seconds;
-10. a ``kernels`` JSON line: each kernel with what it replaces, its
+10. the serve path (``takzero_torch.drivers.{tei,analysis,evaluation,
+   puzzle}`` and ``takzero_torch.serve_bench``), every net 16x256 bf16
+   with SimHash over 2^32 bits: (a) one TEI chunk at net6_simhash from a
+   random 6x6 midgame with both kernels' inputs recorded: kernel A must
+   equal ``topk_plain`` at the serve chunk's f32[127, 9036], k=256 and the
+   plain simulate's f32[1, 9036], kernel B ``simhash_plain`` on the
+   [127, 1296] and [1, 1296] planes under phase 4's rule, both timed at the
+   serve shape (A beside ``torch.topk``), and one more chunk under the
+   profiler (device kernels and busy time, host time per wavefront
+   phase); (b) ``TeiEngine.handle`` on
+   ``tei``, ``isready``, ``position startpos``, ``go nodes 1024``, the
+   bestmove played, ``go nodes 1024``, the midgame TPS, ``go movetime
+   2000``, ``quit``: every bestmove legal, every ``info`` line parsed, the
+   tree reused (the descended root keeps the child's visits), each kernel
+   launched exactly twice per chunk; (c) ``serve_bench`` with its defaults
+   (nodes/s, seconds per chunk, peak device memory) beside TEI's own nps;
+   (d) one analysis chunk on a fresh tree: 128 root visits, one table row
+   per valid root child, kernel A 128 launches and B 2; (e) the evaluation
+   driver with ``--pair`` at net4_simhash on two checkpoints of
+   ``new_agent`` seeds 1 and 2 (32 games, k=4, budget 8, 25 moves a side:
+   depth cut): both log lines parse as the Elo tooling parses them, W+L+D
+   <= games, both kernels (budget+1) launches per half-move; (f) the puzzle
+   driver at net6_simhash on a SQLite database of three 6x6 win-in-1
+   positions with both capstones placed (k=8, budget 24): every row
+   attempted, solved and proven reported (random weights: not gated);
+11. a ``kernels`` JSON line: each kernel with what it replaces, its
    launches on the move program (``launches``), on the learner
    (``learner_launches``), on the selfplay driver and on reanalyze
-   (``selfplay_driver_launches``, ``reanalyze_launches``), its error
-   against the plain version, its device time (``ms``), its call time
-   (``call_ms``), the plain version's and the library call's device times,
-   its bound, and the same at the loop's 4x4 shape (``at_4x4``).
+   (``selfplay_driver_launches``, ``reanalyze_launches``), on the serve
+   path (``tei_launches``, ``analysis_launches``, ``evaluation_launches``,
+   ``puzzle_launches``), its error against the plain version, its device
+   time (``ms``), its call time (``call_ms``), the plain version's and the
+   library call's device times, its bound, the same at the loop's 4x4
+   shape (``at_4x4``), and at the serve chunk's shape (``serve_ms``,
+   ``serve_call_ms``, ``serve_bound_ms``, ``serve_plain_ms``,
+   ``serve_library_ms``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
@@ -97,9 +126,13 @@ it exits with 1 at once.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -572,11 +605,12 @@ def train_step_flops(cfg, batch: int) -> float:
     return 3 * 2 * batch * cfg.n * cfg.n * per_position
 
 
-def profile_train_step(fn, calls: int = 3) -> dict:
+def profile_device(fn, calls: int = 3, ranges: tuple = ()) -> dict:
     """Device time per call of ``fn`` under the profiler: kernels and
     copies summed, the convolutions' (forward and backward, every kernel
-    under them), the idle share of the wall time, and the kernels that take
-    the most (their totals over the ``calls`` calls)."""
+    under them), the idle share of the wall time, the kernels that take
+    the most (their totals over the ``calls`` calls), and the host time per
+    call inside each ``record_function`` range named in ``ranges``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -596,11 +630,17 @@ def profile_train_step(fn, calls: int = 3) -> dict:
                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.time_range.elapsed_us() for e in on_device)
     conv_us = sum(_device_total_us(r) for r in rows if r.key in ("aten::convolution", "aten::convolution_backward"))
-    return {
+    out = {
         "device_busy_ms": device_us / 1e3 / calls, "device_events": len(on_device) // calls,
+        "wall_ms_under_profiler": wall * 1e3 / calls,
         "idle_share_under_profiler": 1.0 - device_us / 1e6 / wall, "conv_device_ms": conv_us / 1e3 / calls,
         "top_by_device": _top([r for r in rows if r.device_type == DeviceType.CUDA], _device_us, 6),
     }
+    if ranges:
+        host = {r.key: r.cpu_time_total for r in prof.key_averages()
+                if r.key in ranges and r.device_type == DeviceType.CPU}  # not the ranges' device rows
+        out["host_ms_by_range"] = {k: host.get(k, 0.0) / 1e3 / calls for k in ranges}
+    return out
 
 
 def _expected_learner_launches(pretrain_steps: int, runs) -> int:
@@ -709,7 +749,7 @@ def run_learner_main_path(dev) -> dict:
         end.record()
         torch.cuda.synchronize(dev)
         step_ms = start.elapsed_time(end) / 10
-        busy = profile_train_step(lambda: step(agent, opt, one, True))
+        busy = profile_device(lambda: step(agent, opt, one, True))
 
     steps = sum(r["steps"] for r in loop)
     seconds = sum(r["seconds"] for r in loop)
@@ -950,6 +990,365 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the serve path.
+# ---------------------------------------------------------------------------
+
+# The Elo tooling's patterns for the evaluation driver's log lines
+# (takzero_tpu/tools/elo_curve.py:48, takzero_tpu/tools/match_results.py:16).
+ELO_MATCH = re.compile(r"INFO:evaluation:(\S+) vs\. (\S+): Evaluation")
+MATCH_RESULT = re.compile(
+    r"([\w\-]+?)[_\-](\d+)\.(?:ot|ckpt) vs\. ([\w\-]+?)[_\-](\d+)\.(?:ot|ckpt): "
+    r"Evaluation \{ wins: (\d+), losses: (\d+), draws: (\d+) \}"
+)
+INFO_LINE = re.compile(r"info time (\d+) nodes (\d+) nps (\d+) score (cp -?\d+|mate -?\d+) pv((?: \S+)+)")
+
+# 6x6 win-in-1 positions with both capstones placed (the reference's
+# puzzle filter), white to move: a road completes on rank 1 or file a.
+WIN_IN_1 = [
+    ("x6/x6/x6/1C,x4,2C/2,2,2,2,2,x/1,1,1,1,1,x 1 7", "f1"),
+    ("x6/x6/x6/2C,x4,1C/x,2,2,2,2,2/x,1,1,1,1,1 1 7", "a1"),
+    ("x,2,x4/1,2,x4/1,2,x4/1,2,x2,1C,2C/1,2,x4/1,x5 1 7", "a6"),
+]
+
+
+@contextlib.contextmanager
+def recording_kernel_inputs(calls: list):
+    """Record (kernel, input copy, k or matrix) of every kernel call the
+    search (A) and the evaluator (B) make; the calls still launch."""
+    import takzero_torch.models.agent as agent
+    import takzero_torch.search.core as core
+    import takzero_torch.search.serve as serve
+    from takzero_torch.ops import simhash, topk
+
+    def rec_a(x, k):
+        calls.append(("A", x.clone(), k))
+        return topk.exact_top_k_unsorted(x, k)
+
+    def rec_b(x, m):
+        calls.append(("B", x.clone(), m))
+        return simhash.simhash_pack(x, m)
+
+    saved = core.exact_top_k_unsorted, serve.exact_top_k_unsorted, agent.simhash_pack
+    core.exact_top_k_unsorted = serve.exact_top_k_unsorted = rec_a
+    agent.simhash_pack = rec_b
+    try:
+        yield
+    finally:
+        core.exact_top_k_unsorted, serve.exact_top_k_unsorted, agent.simhash_pack = saved
+
+
+def midgame_tps(eng, gen, dev, plies: int = 24) -> str:
+    """TPS of a non-terminal 6x6 position after ``plies`` random plies."""
+    import torch
+
+    from takzero_torch.tak.tps import state_to_tps
+
+    while True:
+        state = eng.initial(1, dev)
+        for _ in range(plies):
+            act = torch.multinomial(eng.legal_mask(state).float(), 1, generator=gen)[:, 0]
+            state = eng.step(state, act)
+            if int(eng.terminal_kind(state)[0]):
+                break
+        else:
+            return state_to_tps(eng.n, state.map(lambda x: x[0].cpu()))
+
+
+def check_serve_kernels(engine_, tps: str, dev) -> dict:
+    """10a: one TEI chunk at net6_simhash from ``tps`` with both kernels'
+    inputs recorded; each kernel held against its plain version on them and
+    timed at the serve chunk's shape."""
+    import torch
+
+    from takzero_torch.drivers.tei import MAX_NODES
+    from takzero_torch.ops import simhash, topk
+    from takzero_torch.search.tree import init_tree
+
+    engine_.handle(f"position tps {tps}")
+    tree = init_tree(engine_.eng, engine_.position, MAX_NODES, 256)
+    calls = []
+    with recording_kernel_inputs(calls):
+        engine_._run(tree)
+    torch.cuda.synchronize()
+    a_in = [(x, k) for w, x, k in calls if w == "A"]
+    b_in = [(x, m) for w, x, m in calls if w == "B"]
+    shapes = {"A": [list(x.shape) for x, _ in a_in], "B": [list(x.shape) for x, _ in b_in]}
+    if shapes != {"A": [[1, 9036], [127, 9036]], "B": [[1, 1296], [127, 1296]]}:
+        raise AssertionError(f"serve chunk kernel inputs {shapes}")
+    for x, k in a_in:
+        expect_topk_equal(x, k, f"serve chunk rows {list(x.shape)}")
+    phases = tuple(f"serve_chunk.{p}" for p in "ABCD")
+    chunk_profile = profile_device(lambda: engine_._run(tree), calls=1, ranges=phases)
+    b_err = max(expect_simhash_equal(x, m, f"serve chunk planes {list(x.shape)}") for x, m in b_in)
+
+    (x, k), (xb, m) = a_in[1], b_in[1]
+    b, a = x.shape
+    a_out = dict(shape=[b, a], k=k, max_abs_err=0.0, rows_fewer_than_k_legal=int(((x > NEG / 2).sum(-1) < k).sum()),
+                 kernel_ms=device_ms(lambda: topk.exact_top_k_unsorted(x, k))[0],
+                 call_ms=call_ms(lambda: topk.exact_top_k_unsorted(x, k)),
+                 plain_ms=device_ms(lambda: topk.topk_plain(x, k))[0],
+                 library_ms=device_ms(lambda: torch.topk(x, k, sorted=False))[0])
+    a_out["bound_ms"], a_out["bound_by"] = bound_ms(b * a * 4 + b * k * 8, b * a)
+    bb, inp = xb.shape
+    bits = m.shape[1]
+    b_out = dict(shape=[bb, inp, bits], max_abs_err=b_err,
+                 kernel_ms=device_ms(lambda: simhash.simhash_pack(xb, m))[0],
+                 call_ms=call_ms(lambda: simhash.simhash_pack(xb, m)),
+                 plain_ms=device_ms(lambda: simhash.simhash_plain(xb, m))[0], library_ms=None)
+    b_out["bound_ms"], b_out["bound_by"] = bound_ms(bb * inp * 4 + inp * bits * 4 + bb * 8, 2 * bb * inp * bits)
+    log({"phase": "serve: kernels at the serve chunk's shapes", "card": card_line(),
+         "exact_top_k_unsorted": a_out, "simhash_pack": b_out, "tei_chunk_profile": chunk_profile})
+    return {"exact_top_k_unsorted": a_out, "simhash_pack": b_out}
+
+
+def run_tei(engine_, tps: str) -> dict:
+    """10b: TeiEngine.handle on a short session at net6_simhash."""
+    import torch
+
+    from takzero_torch.drivers.tei import SIM_CHUNK
+    from takzero_torch.tak.moves import ptn_to_action
+
+    out, eng = engine_.out, engine_.eng
+    mark = [len(out.getvalue().splitlines())]
+
+    def lines_since() -> list:
+        lines = out.getvalue().splitlines()
+        new, mark[0] = lines[mark[0]:], len(lines)
+        return new
+
+    def go(cmd: str) -> tuple[str, list]:
+        position = engine_.position
+        if not engine_.handle(cmd):
+            raise AssertionError(f"TEI: {cmd!r} ended the session")
+        lines = lines_since()
+        infos = []
+        for i, line in enumerate(lines[:-1]):
+            m = INFO_LINE.fullmatch(line)
+            if not m or int(m[2]) != SIM_CHUNK * (i + 1):
+                raise AssertionError(f"TEI: {cmd!r}: info line {line!r} does not parse")
+            for mv in m[5].split():
+                ptn_to_action(eng.n, mv)
+            infos.append({"time_ms": int(m[1]), "nodes": int(m[2]), "nps": int(m[3]), "score": m[4],
+                          "pv": m[5].split()})
+        best = lines[-1].split()
+        if best[0] != "bestmove" or not infos:
+            raise AssertionError(f"TEI: {cmd!r} answered {lines[-1]!r} after {len(infos)} info lines")
+        if not bool(eng.legal_mask(position)[0, ptn_to_action(eng.n, best[1])]):
+            raise AssertionError(f"TEI: bestmove {best[1]} is not legal")
+        return best[1], infos
+
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    for cmd, want in (("tei", "teiok"), ("isready", "readyok")):
+        engine_.handle(cmd)
+        if lines_since()[-1] != want:
+            raise AssertionError(f"TEI: {cmd!r} not answered with {want!r}")
+    engine_.handle("position startpos")
+    best1, infos1 = go("go nodes 1024")
+    root = engine_.tree
+    slot = (root.child_action[0, 0] == ptn_to_action(eng.n, best1)).nonzero()[0, 0]
+    child_visits, child_node = int(root.child_visit[0, 0, slot]), int(root.child_node[0, 0, slot])
+    engine_.handle(f"position startpos moves {best1}")
+    if engine_.tree is None:
+        raise AssertionError(f"TEI: the descent to {best1} returned ok False (child node {child_node})")
+    reused = int(engine_.tree.root_visit[0])
+    if reused < child_visits:
+        raise AssertionError(f"TEI: the reused root has {reused} visits, the child had {child_visits}")
+    best2, infos2 = go("go nodes 1024")
+    engine_.handle(f"position tps {tps}")
+    best3, infos3 = go("go movetime 2000")
+    if engine_.handle("quit"):
+        raise AssertionError("TEI: quit did not end the session")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    chunks = len(infos1) + len(infos2) + len(infos3)
+    launches = _expect_launches("TEI", 2, chunks)
+    out = {"phase": "serve: TEI session", "net": "net6_simhash (16x256 bf16, SimHash 2^32)", "card": card_line(),
+           "chunks": chunks, "sims_per_chunk": SIM_CHUNK, "bestmoves": [best1, best2, best3],
+           "reused_root_visits": reused, "child_visits_before": child_visits,
+           "nps_by_go": [i[-1]["nps"] for i in (infos1, infos2, infos3)],
+           "nodes_by_go": [i[-1]["nodes"] for i in (infos1, infos2, infos3)],
+           "seconds_per_chunk_last_go": infos3[-1]["time_ms"] / 1e3 / len(infos3),
+           "last_info": infos3[-1], "launches": launches, "seconds": seconds}
+    log(out)
+    return out
+
+
+def run_serve_bench(dev, tei: dict) -> dict:
+    """10c: ``serve_bench`` with its defaults, beside TEI's own nps."""
+    import torch
+
+    from takzero_torch import serve_bench
+
+    before = torch.cuda.memory_allocated(dev)  # the TEI engine's agent and tree stay allocated
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = serve_bench.main(["--device", str(dev)])  # its defaults, on this card
+    out = {"phase": "serve: serve_bench", "card": card_line(), **res,
+           "config": "net6_simhash, 1 warm-up + 8 timed chunks of 1 simulate + 127-leaf serve chunk, 4096 rows, C=128",
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "allocated_before_gb": before / 1e9,
+           "tei_nps_c256": tei["nps_by_go"]}
+    log(out)
+    return out
+
+
+def run_analysis(engine_, tps: str, dev) -> dict:
+    """10d: one analysis chunk at net6_simhash on a fresh tree."""
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.drivers import analysis
+    from takzero_torch.tak.tps import tps_to_state
+
+    cfg = NET_PRESETS["net6_simhash"]
+    eng = engine_.eng
+    run = analysis.make_chunk_runner(cfg, eng, engine_.bundle, dev)
+    tree = analysis.fresh_tree(cfg, eng, tps_to_state(eng.n, tps).map(lambda x: x[None].to(dev)))
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    tree = run(tree)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    want = {"exact_top_k_unsorted": analysis.SIM_CHUNK, "simhash_pack": 2}
+    if launches != want:
+        raise AssertionError(f"analysis chunk: launches {launches}, expected {want}")
+    if int(tree.root_visit[0]) != analysis.SIM_CHUNK:
+        raise AssertionError(f"analysis chunk: the root has {int(tree.root_visit[0])} visits")
+    buf = io.StringIO()
+    analysis.print_root_table(eng.n, tree, out=buf)
+    rows = buf.getvalue().splitlines()[2:]
+    valid = int((tree.child_action[0, 0] >= 0).sum())
+    if len(rows) != valid:
+        raise AssertionError(f"analysis table: {len(rows)} rows for {valid} valid root children")
+    out = {"phase": "serve: analysis chunk", "card": card_line(), "root_children": valid,
+           "seconds": seconds, "sims_per_s": analysis.SIM_CHUNK / seconds, "launches": launches,
+           "top_rows": rows[:3]}
+    log(out)
+    return out
+
+
+def run_evaluation(dev, games: int = 32, sampled: int = 4, budget: int = 8, max_moves: int = 25) -> dict:
+    """10e: the evaluation driver with --pair at net4_simhash."""
+    import logging
+
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.drivers import evaluation
+    from takzero_torch.models.agent import new_agent
+    from takzero_torch.utils import ckpt
+
+    cfg = NET_PRESETS["net4_simhash"]
+    names = ["model_0000001.ckpt", "model_0000002.ckpt"]
+    with tempfile.TemporaryDirectory(prefix="takzero_eval_") as d:
+        for seed, name in zip((1, 2), names):
+            ckpt.save_checkpoint(d, name, new_agent(cfg, seed=seed, device=dev))
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        handler = logging.StreamHandler(buf)
+        handler.setFormatter(logging.Formatter("%(levelname)s:%(name)s:%(message)s"))
+        logger = logging.getLogger("evaluation")
+        logger.addHandler(handler)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            # --rss-limit-gb 0: the watchdog would outlive this phase in
+            # the smoke's one process.
+            results = evaluation.main([
+                "--model-path", d, "--net", "net4_simhash", "--pair", ",".join(names), "--games", str(games),
+                "--sampled", str(sampled), "--budget", str(budget), "--max-moves", str(max_moves),
+                "--seed", "0", "--rss-limit-gb", "0", "--device", str(dev)])
+        finally:
+            logger.removeHandler(handler)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    half_moves = sum(r.half_moves for *_, r in results)
+    launches = _expect_launches("evaluation driver", budget + 1, half_moves)
+    lines = [x for x in buf.getvalue().splitlines() if " vs. " in x]
+    if len(lines) != 2:
+        raise AssertionError(f"evaluation driver: {len(lines)} match lines, expected 2")
+    scores = []
+    for line, (a, b, r) in zip(lines, results):
+        m, res = ELO_MATCH.search(line), MATCH_RESULT.search(line)
+        if not m or not res or m.groups() != (a, b):
+            raise AssertionError(f"evaluation driver: the Elo tooling cannot parse {line!r}")
+        wld = tuple(int(res[i]) for i in (5, 6, 7))
+        if wld != (r.wins, r.losses, r.draws) or sum(wld) > games:
+            raise AssertionError(f"evaluation driver: {line!r} against {r}")
+        scores.append(list(wld))
+    out = {"phase": "serve: evaluation driver", "card": card_line(),
+           "net": "net4_simhash (16x256 bf16, SimHash 2^32)",
+           "cuts": {"games": games, "sampled": sampled, "budget": budget, "max_moves": max_moves},
+           "lines": lines, "wins_losses_draws": scores, "half_moves": half_moves,
+           "half_moves_per_s": half_moves / seconds, "seconds": seconds, "launches": launches}
+    log(out)
+    return out
+
+
+def run_puzzles(engine_, dev, sampled: int = 8, budget: int = 24) -> dict:
+    """10f: the puzzle driver at net6_simhash on a database it writes."""
+    import sqlite3
+
+    import torch
+
+    from takzero_torch.drivers import puzzle
+    from takzero_torch.utils import ckpt
+
+    with tempfile.TemporaryDirectory(prefix="takzero_puzzle_") as d:
+        db = f"{d}/puzzles.db"
+        con = sqlite3.connect(db)
+        con.execute("CREATE TABLE games (id INTEGER PRIMARY KEY, size INTEGER)")
+        con.execute("""CREATE TABLE puzzles (
+            game_id INTEGER, tps TEXT, solution TEXT,
+            tinue_length INTEGER, tinue_avoidance_length INTEGER,
+            tiltak_2komi_second_move_eval REAL, tiltak_2komi_eval REAL)""")
+        con.execute("INSERT INTO games VALUES (1, 6)")
+        con.executemany("INSERT INTO puzzles VALUES (1, ?, ?, 1, NULL, 0.0, 0.0)", WIN_IN_1)
+        con.commit()
+        con.close()
+        model = ckpt.save_checkpoint(d, "model.ckpt", ckpt.strip_hash_bits(engine_.bundle))
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        results = puzzle.main(["--model", str(model), "--puzzle-db", db, "--net", "net6_simhash", "--depths", "1",
+                               "--avoidance-depths", "", "--sampled-actions", str(sampled),
+                               "--search-budget", str(budget), "--device", str(dev)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = _expect_launches("puzzle driver", budget + 1, 1)  # one batch of 64
+    if [(r.category, r.attempted) for r in results] != [("tinue", len(WIN_IN_1))]:
+        raise AssertionError(f"puzzle driver: {results}")
+    r = results[0]
+    out = {"phase": "serve: puzzle driver", "card": card_line(), "rows": len(WIN_IN_1), "attempted": r.attempted,
+           "solved": r.solved, "proven": r.proven, "nodes": r.nodes, "nodes_incomplete": r.nodes_incomplete,
+           "cuts": {"sampled": sampled, "budget": budget}, "seconds": seconds, "launches": launches}
+    log(out)
+    return out
+
+
+def run_serve_path(dev, gen) -> dict:
+    """Phase 10: 10a-10f; returns each part's result."""
+    import torch
+
+    from takzero_torch.drivers.tei import TeiEngine
+    from takzero_torch.tak.engine import engine
+
+    t0 = time.perf_counter()
+    tps = midgame_tps(engine(6, half_komi=4), gen, dev)
+    engine_ = TeiEngine("net6_simhash", None, out=io.StringIO(), device=dev)
+    engine_.handle("isready")
+    res = {"kernels": check_serve_kernels(engine_, tps, dev)}
+    res["tei"] = run_tei(engine_, tps)
+    res["bench"] = run_serve_bench(dev, res["tei"])
+    res["analysis"] = run_analysis(engine_, tps, dev)
+    res["evaluation"] = run_evaluation(dev)
+    res["puzzles"] = run_puzzles(engine_, dev)
+    del engine_
+    torch.cuda.empty_cache()
+    log({"phase": "serve path done", "midgame_tps": tps, "seconds": time.perf_counter() - t0})
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -991,6 +1390,7 @@ def main() -> int:
     learner_launches = run_learner_main_path(dev)
     at_4x4 = check_kernels_4x4(gen, dev)
     loop = run_actor_loop(dev)
+    serve = run_serve_path(dev, gen)
 
     kernels = []
     for name, out, source, replaces in (
@@ -1006,6 +1406,13 @@ def main() -> int:
             "max_abs_err": out["max_abs_err"],
             "ms": out["kernel_ms"], "call_ms": out["call_ms"], "plain_ms": out["plain_ms"],
             "bound_ms": out["bound_ms"], "bound_by": out["bound_by"], "library_ms": out["library_ms"],
+            "tei_launches": serve["tei"]["launches"][name], "analysis_launches": serve["analysis"]["launches"][name],
+            "evaluation_launches": serve["evaluation"]["launches"][name],
+            "puzzle_launches": serve["puzzles"]["launches"][name],
+            "serve_shape": serve["kernels"][name]["shape"], "serve_ms": serve["kernels"][name]["kernel_ms"],
+            "serve_call_ms": serve["kernels"][name]["call_ms"], "serve_bound_ms": serve["kernels"][name]["bound_ms"],
+            "serve_plain_ms": serve["kernels"][name]["plain_ms"],
+            "serve_library_ms": serve["kernels"][name]["library_ms"],
         })
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())

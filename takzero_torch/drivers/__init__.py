@@ -1,4 +1,5 @@
-"""Command-line drivers: ``learn``, ``selfplay`` and ``reanalyze``."""
+"""Command-line drivers: ``learn``, ``selfplay``, ``reanalyze``, ``evaluation``,
+``puzzle``, ``tei`` and ``analysis``."""
 
 from __future__ import annotations
 

@@ -1,11 +1,16 @@
 """Batched MCTS simulation: forward descent, evaluation, expansion, backup.
 
 Counterpart of ``takzero_tpu/search/core.py`` (``forward`` :101,
-``apply_eval`` :305, ``backward`` :430, ``simulate`` :588): one
-``simulate`` call runs one simulation on every tree of the batch, with the
-same PUCT selection, visit accounting, guarded expansion through the exact
-unsorted top-k (kernel A, :func:`takzero_torch.ops.topk.exact_top_k_unsorted`)
-and the exact win/loss/draw solver.
+``apply_eval`` :305, ``backward`` :430, ``simulate`` :588,
+``simulate_batch`` :596): one ``simulate`` call runs one simulation on every
+tree of the batch, with the same PUCT selection, visit accounting, guarded
+expansion through the exact unsorted top-k (kernel A,
+:func:`takzero_torch.ops.topk.exact_top_k_unsorted`) and the exact
+win/loss/draw solver.  ``simulate_batch`` is the serve path's K
+simulations per network call (the reference's ``virtual`` feature,
+mcts.rs:268-328): K descents of the same trees, each known stop backed up
+at once, ONE evaluator call over the K*B stacked leaves, then K guarded
+expansions and leaf backups.
 
 The two data-dependent ``while_loop``s of the JAX program become Python
 loops with one host check per level, which keeps JAX's semantics exactly:
@@ -24,7 +29,7 @@ import torch
 
 from ..ops.topk import exact_top_k_unsorted
 from ..tak.engine import TakEngine
-from ..tak.state import where_state
+from ..tak.state import TakState, where_state
 from . import eval as ev
 from .tree import Tree
 
@@ -37,10 +42,13 @@ def _at(row: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
 
 
 def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
-    """Build ``simulate(tree, beta, forced_slot=None, *, skip_root=False)``.
+    """Build ``(simulate, simulate_batch)``.
 
-    ``evaluator(envs) -> (policy_logits [B, A], value [B], variance [B])``.
-    Expansion selects children with kernel A (``exact_top_k_unsorted``).
+    ``simulate(tree, beta, forced_slot=None, *, skip_root=False)`` and
+    ``simulate_batch(tree, beta, k)``.  ``evaluator(envs) ->
+    (policy_logits [B, A], value [B], variance [B])``.  Expansion selects
+    children with kernel A (``exact_top_k_unsorted``), once per
+    ``apply_eval``.
     """
 
     def forward(tree: Tree, beta, forced_slot, skip_root: bool):
@@ -259,13 +267,18 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
         tree.overflow.add_((evaluated & ~can_expand).to(torch.int32))
         return tree
 
-    def backward(tree: Tree, rec, v_net, var_net, skip_root: bool):
+    def backward(tree: Tree, rec, v_net, var_net, skip_root: bool, mode: str = "all"):
+        """``mode``: "all" (known stops and evaluated leaves), "known" or "leaf"."""
         b, m, c = tree.child_visit.shape
         bar = torch.arange(b, device=tree.child_visit.device)
         path_node, path_slot = rec["path_node"], rec["path_slot"]
         length = rec["length"]
         stop_known = rec["stop_known"]
-        active_bwd = stop_known | rec["lane_eval_leaf"]
+        active_bwd = {
+            "all": stop_known | rec["lane_eval_leaf"],
+            "known": stop_known,
+            "leaf": rec["lane_eval_leaf"],
+        }[mode]
         v_net = v_net.float()
         var_net = var_net.float()
 
@@ -348,20 +361,58 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
         return tree
 
     def simulate(tree: Tree, beta, forced_slot=None, *, skip_root: bool = False):
-        b = tree.batch_size
-        dev = tree.child_visit.device
-        if isinstance(beta, torch.Tensor):
-            beta = beta.to(device=dev, dtype=torch.float32).expand(b)
-        else:  # a fill, not a host-to-device copy
-            beta = torch.full((b,), float(beta), dtype=torch.float32, device=dev)
+        beta = _betas(tree, beta)
         rec = forward(tree, beta, forced_slot, skip_root)
         logits, v_net, var_net = evaluator(rec["env_eval"])
         apply_eval(tree, rec, logits, v_net, var_net)
         return backward(tree, rec, v_net, var_net, skip_root)
 
-    return simulate
+    def simulate_batch(tree: Tree, beta, k: int):
+        """K simulations per tree with ONE evaluator call (mcts.rs:268-328).
+
+        Precondition: every root expanded (run one plain ``simulate`` on a
+        fresh tree first).  Root statistics update as in ``simulate``.
+        """
+        b = tree.batch_size
+        beta = _betas(tree, beta)
+        zero = torch.zeros((b,), dtype=torch.float32, device=tree.child_visit.device)
+        recs = []
+        for _ in range(k):
+            rec = forward(tree, beta, None, False)
+            # Known stops (terminals, solved subtrees, depth clips) are
+            # backed up at once, as the reference does.
+            backward(tree, rec, zero, zero, False, mode="known")
+            recs.append(rec)
+
+        # One evaluator call over all K*B leaves, stacked k-major as JAX's
+        # scan stacks them.
+        envs = TakState(*(torch.cat(parts) for parts in zip(*(r["env_eval"] for r in recs))))
+        logits, v_net, var_net = evaluator(envs)
+        logits = logits.reshape(k, b, -1)
+        v_net = v_net.float().reshape(k, b)
+        var_net = var_net.float().reshape(k, b)
+        for i, rec in enumerate(recs):
+            apply_eval(tree, rec, logits[i], v_net[i], var_net[i])
+            backward(tree, rec, v_net[i], var_net[i], False, mode="leaf")
+        return tree
+
+    return simulate, simulate_batch
+
+
+def _betas(tree: Tree, beta) -> torch.Tensor:
+    """``beta`` as f32[B] on the tree's device (a scalar becomes a fill, not
+    a host-to-device copy)."""
+    b, dev = tree.batch_size, tree.child_visit.device
+    if isinstance(beta, torch.Tensor):
+        return beta.to(device=dev, dtype=torch.float32).expand(b)
+    return torch.full((b,), float(beta), dtype=torch.float32, device=dev)
 
 
 def make_simulate(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
     """Build ``simulate(tree, beta, forced_slot, skip_root) -> Tree``."""
-    return make_kernels(eng, evaluator, max_depth)
+    return make_kernels(eng, evaluator, max_depth)[0]
+
+
+def make_simulate_batch(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
+    """Build ``simulate_batch(tree, beta, k) -> Tree`` (the serve-path kernel)."""
+    return make_kernels(eng, evaluator, max_depth)[1]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..tak.state import TakState
@@ -163,6 +164,116 @@ def reset_lanes(tree: Tree, mask: torch.Tensor, new_envs: TakState) -> Tree:
         else:
             _where_(getattr(tree, name), mask, val)
     return tree
+
+
+def descend_host(tree: Tree, action: int) -> Tree | None:
+    """Re-root a single tree (B=1) at the root child playing ``action``, on
+    the host.
+
+    The port of JAX's ``descend_host``: a breadth-first walk over the child
+    links from the new root renumbers the subtree into rows ``0..k-1``
+    (the other rows keep their fill values) and the tree comes back on the
+    input's device.  Returns ``None`` when the action is not a root child or
+    that child was never expanded (the caller rebuilds from the stepped
+    position).
+    """
+    if tree.batch_size != 1:
+        raise ValueError("descend_host reuses single-game trees (B=1)")
+    dev = tree.child_action.device
+    ca = tree.child_action[0].cpu().numpy()
+    cn = tree.child_node[0].cpu().numpy()
+    slots = np.nonzero(ca[0] == action)[0]
+    if len(slots) == 0:
+        return None
+    slot = int(slots[0])
+    r = int(cn[0, slot])
+    if r < 0:
+        return None
+
+    order = [r]
+    seen = {r}
+    for node in order:
+        for child in cn[node]:
+            child = int(child)
+            if child >= 0 and child not in seen:
+                seen.add(child)
+                order.append(child)
+    m = cn.shape[0]
+    remap = np.full(m, -1, np.int64)
+    remap[order] = np.arange(len(order))
+    k = len(order)
+    take = np.asarray(order)
+
+    def on_dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a[None]).to(dev)
+
+    def copy_pool(arr: torch.Tensor, fill) -> torch.Tensor:
+        a = arr[0].cpu().numpy()
+        out = np.full_like(a, fill)
+        out[:k] = a[take]
+        return on_dev(out)
+
+    def copy_env(x: torch.Tensor) -> torch.Tensor:
+        a = x[0].cpu().numpy()
+        out = a.copy()
+        out[:k] = a[take]
+        return on_dev(out)
+
+    def relink(links: np.ndarray) -> np.ndarray:
+        return np.where(links >= 0, remap[links.clip(0)], -1).astype(np.int32)
+
+    child_node = np.full_like(cn, -1)
+    child_node[:k] = relink(cn[take])
+    node_parent = np.full(m, -1, np.int32)
+    node_parent[:k] = relink(tree.node_parent[0].cpu().numpy()[take])
+    node_parent[0] = -1
+    node_slot = copy_pool(tree.node_slot, -1)
+    node_slot[0, 0] = -1
+    idx = torch.arange(m, dtype=torch.int32, device=dev)[None, :]
+    one = dict(dtype=torch.int32, device=dev)
+    return Tree(
+        node_parent=on_dev(node_parent),
+        node_slot=node_slot,
+        node_incomplete=copy_pool(tree.node_incomplete, False),
+        node_env=tree.node_env.map(copy_env),
+        node_count=torch.tensor([k], **one),
+        child_action=copy_pool(tree.child_action, -1),
+        child_logit=copy_pool(tree.child_logit, 0.0),
+        child_prob=copy_pool(tree.child_prob, 0.0),
+        child_visit=copy_pool(tree.child_visit, 0),
+        child_flag=copy_pool(tree.child_flag, 0),
+        child_ply=copy_pool(tree.child_ply, 0),
+        child_value=copy_pool(tree.child_value, 0.0),
+        child_std=copy_pool(tree.child_std, 0.0),
+        child_node=on_dev(child_node),
+        node_live=idx < k,
+        free_rows=(idx + k).clamp(max=m - 1),
+        alloc_ptr=torch.zeros((1,), **one),
+        free_count=torch.tensor([m - 1 - k], **one),
+        root_visit=tree.child_visit[:, 0, slot].clone(),
+        root_flag=tree.child_flag[:, 0, slot].clone(),
+        root_ply=tree.child_ply[:, 0, slot].clone(),
+        root_value=tree.child_value[:, 0, slot].clone(),
+        root_std=tree.child_std[:, 0, slot].clone(),
+        overflow=torch.zeros((1,), **one),
+    )
+
+
+def descend_device(tree: Tree, action) -> tuple[Tree, torch.Tensor]:
+    """Single-tree re-root at the root child playing ``action``, on the
+    device: the serve path's tree reuse across TEI ``position`` commands.
+
+    The port of JAX's ``descend_device``, an action-keyed wrapper over
+    :func:`descend_batch` at B=1.  Returns ``(tree2, ok)`` with ``ok`` a
+    0-d bool tensor; when it is False (the action is not a root child, or
+    that child was never expanded) ``tree2`` must be discarded.
+    """
+    if tree.batch_size != 1:
+        raise ValueError("descend_device reuses single-game trees (B=1)")
+    hit = tree.child_action[0, 0] == torch.as_tensor(action, device=tree.child_action.device)
+    slot = hit.to(torch.uint8).argmax()
+    tree2, ok = descend_batch(tree, slot[None])
+    return tree2, ok[0] & hit.any()
 
 
 def descend_batch(tree: Tree, slot, min_headroom: int = 0, max_chain: int | None = None):

@@ -47,6 +47,11 @@ def _host_opening(eng: TakEngine, rng: np.random.Generator, games: int, device) 
     return make_new_opening(eng)(sym, pair)
 
 
+def stack_states(states) -> TakState:
+    """Stack single positions (e.g. from ``tps_to_state``) into a batch."""
+    return TakState(*(torch.stack(xs) for xs in zip(*states)))
+
+
 def _random_actions(legal: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The ``floor(u * count)``-th legal action of each row, u in [0, 1)."""
     count = legal.sum(-1)

@@ -173,17 +173,29 @@ def read_checkpoint(path) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _bundle_tensors(bundle: dict) -> dict:
+    """The bundle's checkpointed tensors by flat key (``net.<name>``,
+    ``hash_matrix``, ``hash_bits``); they share storage with the bundle."""
+    out = {f"net.{k}": v for k, v in bundle["net"].state_dict().items()}
+    out.update({k: bundle[k] for k in ("hash_matrix", "hash_bits") if k in bundle})
+    return out
+
+
+def _file_tensors(state: dict) -> dict:
+    """A checkpoint's entries by the same flat keys."""
+    net = state.get("net")
+    out = {f"net.{k}": v for k, v in net.items()} if isinstance(net, dict) else {}
+    out.update({k: v for k, v in state.items() if k != "net"})
+    return out
+
+
 def _check_fits(path, state: dict, bundle: dict) -> None:
     """Raise :class:`CheckpointMismatch` unless every tensor of ``state``
     has its place in ``bundle`` with the same shape and dtype, and every
     weight of the bundle's net is in ``state``."""
-    want = {f"net.{k}": v for k, v in bundle["net"].state_dict().items()}
-    want.update({k: bundle[k] for k in ("hash_matrix", "hash_bits") if k in bundle})
-    net = state.get("net")
-    if not isinstance(net, dict):
+    if not isinstance(state.get("net"), dict):
         raise CheckpointMismatch(f"{path}: no 'net' weights")
-    have = {f"net.{k}": v for k, v in net.items()}
-    have.update({k: v for k, v in state.items() if k != "net"})
+    want, have = _bundle_tensors(bundle), _file_tensors(state)
     missing = sorted(k for k in want if k.startswith("net.") and k not in have)
     if ("hash_matrix" in want) != ("hash_matrix" in have):
         missing.append("hash_matrix")
@@ -215,6 +227,39 @@ def load_checkpoint(path, bundle: dict) -> dict:
         for key in ("hash_matrix", "hash_bits"):
             if key in state:
                 bundle[key].copy_(state[key])
+    bundle.pop("folded", None)
+    return bundle
+
+
+def load_checkpoint_partial(path, bundle: dict) -> dict:
+    """Best-effort load into ``bundle`` in place; returns ``bundle``.
+
+    The port of JAX's ``load_checkpoint_partial`` (the reference's
+    ``load_partial``, network/mod.rs:28-35, which evaluation uses on
+    checkpoints of other architectures): a tensor of the file whose key the
+    bundle lacks is ignored, and a weight the file lacks or holds in another
+    shape or dtype keeps the bundle's value.  Each such key is logged.  A
+    file that is not in the port's format still raises
+    :class:`ForeignCheckpoint`: a partial load is no fallback for a file of
+    another format.
+    """
+    log = logging.getLogger("ckpt")
+    have, targets = _file_tensors(read_checkpoint(path)), _bundle_tensors(bundle)
+    with torch.no_grad():
+        for key, dst in targets.items():
+            src = have.get(key)
+            if src is None:
+                if key != "hash_bits":  # a weights-only file keeps the seen-set
+                    log.warning("%s: no %s, keeping the bundle's", path, key)
+                continue
+            if not isinstance(src, torch.Tensor) or src.shape != dst.shape or src.dtype != dst.dtype:
+                got = (tuple(src.shape), src.dtype) if isinstance(src, torch.Tensor) else type(src).__name__
+                log.warning("%s: %s is %s, the bundle holds %s; keeping the bundle's",
+                            path, key, got, (tuple(dst.shape), dst.dtype))
+                continue
+            dst.copy_(src)
+    for key in sorted(set(have) - set(targets)):
+        log.warning("%s: ignoring %s, which the bundle has not", path, key)
     bundle.pop("folded", None)
     return bundle
 

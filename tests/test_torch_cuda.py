@@ -123,3 +123,50 @@ def test_simhash_kernel_ragged_shapes(cuda, b, inp, bits):
     x[:, -(inp // 10):] = torch.rand(b, inp // 10, generator=gen)
     m = torch.randn(inp, bits, generator=gen)
     _expect_simhash_equal(x.to(cuda), m.to(cuda))
+
+
+def _trees_equal(a, b, where: str) -> None:
+    """Every tree array of ``a`` (card) equal to ``b`` (CPU) outside the
+    scratch row, where duplicate stores land in an unfixed order."""
+    for name, x in a._asdict().items():
+        y = getattr(b, name)
+        for u, v in (zip(x, y) if name == "node_env" else [(x, y)]):
+            u = u.cpu()
+            if u.dim() >= 2 and name != "free_rows":
+                u, v = u[:, :-1], v[:, :-1]
+            assert torch.equal(u, v), f"{where}: {name}"
+
+
+@pytest.mark.parametrize("n,moves,k", [(3, ("a3", "c1"), 15), (5, ("a5", "e1"), 31), (6, ("a1", "f6"), 127)])
+def test_serve_chunk_and_simulate_batch_card_equals_cpu(cuda, n, moves, k):
+    """The wavefront serve chunk, ``simulate_batch`` and ``descend_device``
+    on the card give the CPU's trees exactly (dummy evaluator: all logits
+    equal, values 0), through kernel A on the card."""
+    from takzero_torch.search.agents import dummy_evaluator
+    from takzero_torch.search.core import make_kernels
+    from takzero_torch.search.serve import make_serve_chunk
+    from takzero_torch.search.tree import descend_device, init_tree
+    from takzero_torch.tak import engine, ptn_to_action
+
+    eng = engine(n)
+    out = {}
+    for dev in ("cpu", cuda):
+        ev = dummy_evaluator(eng)
+        simulate, simulate_batch = make_kernels(eng, ev, max_depth=16)
+        serve = make_serve_chunk(eng, ev, k, max_depth=16)
+        state = eng.initial(2, dev)
+        for mv in moves:
+            state = eng.step(state, torch.full((2,), ptn_to_action(n, mv), device=dev))
+        before = topk.exact_top_k_unsorted.launches
+        t1 = serve(simulate(init_tree(eng, state, 256, 64), 0.0), 0.0)
+        t2 = simulate_batch(simulate(init_tree(eng, state, 256, 64), 0.0), 0.0, k)
+        one = t1._replace(**{f: getattr(t1, f)[:1] for f in t1._fields if f != "node_env"},
+                          node_env=t1.node_env.map(lambda x: x[:1]))
+        best = int(one.child_action[0, 0][one.child_visit[0, 0].argmax()])
+        t3, ok = descend_device(one, best)
+        assert bool(ok)
+        if torch.device(dev).type == "cuda":
+            assert topk.exact_top_k_unsorted.launches == before + 2 + 1 + k
+        out[str(dev)] = (t1, t2, t3)
+    for what, a, b in zip(("serve chunk", "simulate_batch", "descend_device"), out[str(cuda)], out["cpu"]):
+        _trees_equal(a, b, what)

@@ -36,7 +36,19 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 46, out.stdout  # every module of the port was imported
+    assert count >= 54, out.stdout  # every module of the port was imported
+
+
+def test_entry_points_refuse_devices():
+    """--devices is not ported: every driver of the serve path raises."""
+    from takzero_torch.drivers import analysis, evaluation, puzzle, tei
+
+    for main, argv in (
+        (tei.main, []), (analysis.main, []), (evaluation.main, ["--model-path", "x"]),
+        (puzzle.main, ["--model", "x", "--puzzle-db", "y"]),
+    ):
+        with pytest.raises(NotImplementedError, match="--devices"):
+            main(argv + ["--net", "tiny3", "--device", "cpu", "--devices", "2"])
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -79,4 +91,22 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         random_pretraining_targets(eng, 4, np.random.default_rng(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         new_agent(cfg, seed=1)
+    # The serve path: the TEI engine, the analysis REPL, the pit fighter,
+    # the puzzle benchmark and the serve bench, each without --device.
+    from takzero_torch import serve_bench
+    from takzero_torch.drivers import analysis, evaluation, puzzle
+    from takzero_torch.drivers.tei import TeiEngine
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TeiEngine("tiny3", None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analysis.main(["--net", "tiny3"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluation.main(["--model-path", str(tmp_path), "--net", "tiny3", "--rounds", "1"])
+    db = tmp_path / "missing.db"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        puzzle.main(["--model", str(tmp_path / "m.ckpt"), "--puzzle-db", str(db), "--net", "tiny3"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_bench.main(["--net", "tiny3"])
+    assert not any(tmp_path.iterdir())
     assert resolve_device("cpu") == torch.device("cpu")

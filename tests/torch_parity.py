@@ -85,6 +85,19 @@ def assert_tree_equal(tt, jt, where: str = "", tol: dict | None = None) -> None:
             np.testing.assert_array_equal(a, b, err_msg=f"{where}: {name}")
 
 
+def tree_to_torch(jt):
+    """A JAX Tree -> the port's Tree on the CPU (every array copied)."""
+    from takzero_torch.search.tree import Tree
+
+    fields = {}
+    for name, v in jt._asdict().items():
+        if name == "node_env":
+            fields[name] = state_to_torch(v)
+        else:
+            fields[name] = torch.from_numpy(np.array(v))
+    return Tree(**fields)
+
+
 def _as_t(x, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(dtype)
 
