@@ -23,13 +23,24 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    not multiples of the kernel's tiles.  Every bit whose float64 dot
    satisfies |dot| > 1e-4 must match, and two launches must give
    identical words;
+3b. kernel A on rows too wide for shared memory (after phase 4, so that
+   ``--kernels-only`` still times earlier designs): 8x8's f32[128, 65216]
+   on masked logits of random 8x8 positions and on the adversarial rows,
+   with k=1, 256 and A, values bit for bit and indices exactly; device
+   time, call time, bound, plain time and ``torch.topk``'s at k=256;
+3c. the Gumbel search at 8x8: the small net of
+   ``tests/test_torch_bigboards.py`` on the card against the CPU (trees
+   equal, floats within 1e-4), then one search at 16x256 bf16 with SimHash
+   over 2^32 bits (128 games, k=8, budget 24, C=256): actions legal, the
+   root-visit invariant, both kernels budget+1 launches;
 5. a small reference check: the 3x3 move program (dummy evaluator), the
    small network in float32 and in bf16 on the card against the same on
    the CPU, and one bf16 convolution at the flagship width against
    float64 (the convolutions' float32 accumulation);
 6. the main path: ``takzero_torch.bench`` at the flagship configuration
    (6x6, 16x256 bf16 net, SimHash 2^26, batch 128, k=64, budget 768,
-   C=256, tree reuse), one warm-up move and two timed moves.  Both kernels'
+   C=256, tree reuse), one warm-up move and one timed move (cut from the
+   bench's two to keep the smoke inside its time).  Both kernels'
    launch counters are set to 0 before and must read (budget+1) per move
    after; chosen actions must be legal and tree values finite;
 7. the learner, small reference: two ``tiny3`` train steps (``train_ube``
@@ -96,10 +107,31 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    ``new_agent`` seeds 1 and 2 (32 games, k=4, budget 8, 25 moves a side:
    depth cut): both log lines parse as the Elo tooling parses them, W+L+D
    <= games, both kernels (budget+1) launches per half-move; (f) the puzzle
-   driver at net6_simhash on a SQLite database of three 6x6 win-in-1
-   positions with both capstones placed (k=8, budget 24): every row
-   attempted, solved and proven reported (random weights: not gated);
-11. a ``kernels`` JSON line: each kernel with what it replaces, its
+   driver at net6_simhash on the repository's ``examples/puzzles_6x6.db``
+   (238 puzzles, every category: tinue at depths 3/5/7/9, avoidance at
+   2/4/6; 7 batches of up to 64; k=8, budget 24): every puzzle attempted,
+   (budget+1) launches per batch, solved and proven reported per depth
+   (random weights: not gated);
+11. the co-scheduled driver (``takzero_torch.drivers.coscheduled``) at
+   net4_simhash full width (16x256 bf16, SimHash over 2^32 bits, C=128)
+   with ``--reanalyze``: batch 128, k=8, budget 24, learner batch 128,
+   reanalyze batch 128 from 2,048 positions, the 64+64 mix from step 12,
+   pre-training 10 steps on 1,280 targets, 52 moves (phase 9's cuts; 4x4
+   so that whole games end inside a smoke).  It fails on fewer than 2
+   reanalyze batches or mixed steps, fewer than 128 finished games, launch
+   counts other than (budget+1) per move and per reanalyze batch (A) plus
+   2 per train step (B), in all and (A) in each move as read between two
+   moves' draws, a target line or replay that phase 9's checks
+   reject, a non-finite loss, a step checkpoint equal to
+   ``model_0000000.ckpt``, a ``model_latest.ckpt`` holding the seen-set,
+   or a seen-set that ``bitset_set`` of ``hash_log.bin`` does not rebuild;
+   it logs moves/s, train steps/s, reanalyze targets/s, peak memory and
+   seconds;
+12. ``takzero_torch.tiny_run`` at its defaults cut to 1 iteration and 8
+   evaluation games: the summary parses, games = 16, the final loss is
+   finite, launches as the loop implies, in all and in the one iteration
+   read from the counters around it (no Elo gate);
+13. a ``kernels`` JSON line: each kernel with what it replaces, its
    launches on the move program (``launches``), on the learner
    (``learner_launches``), on the selfplay driver and on reanalyze
    (``selfplay_driver_launches``, ``reanalyze_launches``), on the serve
@@ -109,7 +141,11 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    library call's device times, its bound, the same at the loop's 4x4
    shape (``at_4x4``), and at the serve chunk's shape (``serve_ms``,
    ``serve_call_ms``, ``serve_bound_ms``, ``serve_plain_ms``,
-   ``serve_library_ms``).
+   ``serve_library_ms``); kernel A at 8x8 (``at_8x8``), and each kernel's
+   launches on the 8x8 search, the co-scheduled driver and tiny_run
+   (``search_8x8_launches``, ``coscheduled_launches``,
+   ``tiny_run_launches``; per move of the co-scheduled driver and per
+   iteration of tiny_run, each read from the counters in this run).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
@@ -392,6 +428,126 @@ def check_simhash(eng, envs, gen, dev) -> dict:
     return result
 
 
+def check_topk_8x8(gen, dev) -> dict:
+    """3b: kernel A on rows too wide for shared memory, 8x8's f32[128, 65216]:
+    masked logits of random 8x8 positions and the adversarial rows, with
+    k=1, 256 and A, values bit for bit and indices exactly; timed at k=256
+    on the masked logits."""
+    import torch
+
+    from takzero_torch.ops import topk
+    from takzero_torch.tak.engine import engine
+
+    eng = engine(8, half_komi=4)
+    legal = eng.legal_mask(random_positions(eng, 128, 40, gen, dev))
+    b, a = legal.shape
+    rows = torch.where(legal, torch.randn(b, a, generator=gen, device=dev), NEG).contiguous()
+    hard = adversarial_rows(a, gen, dev)
+    for k in (1, 256, a):
+        expect_topk_equal(rows, k, f"8x8 masked logits k={k}")
+        expect_topk_equal(hard, k, f"8x8 adversarial rows k={k}")
+    k = 256
+    ms, how = device_ms(lambda: topk.exact_top_k_unsorted(rows, k))
+    out = dict(shape=[b, a], k=k, rows_fewer_than_k_legal=int((legal.sum(-1) < k).sum()),
+               adversarial_cases_a_k=[[a, kk] for kk in (1, 256, a)], max_abs_err=0.0, kernel_ms=ms,
+               adversarial_rows_kernel_ms=device_ms(lambda: topk.exact_top_k_unsorted(hard, k))[0],
+               call_ms=call_ms(lambda: topk.exact_top_k_unsorted(rows, k)),
+               plain_ms=device_ms(lambda: topk.topk_plain(rows, k))[0],
+               library_ms=device_ms(lambda: torch.topk(rows, k, sorted=False))[0], timing=how)
+    out["bound_ms"], out["bound_by"] = bound_ms(b * a * 4 + b * k * 8, b * a)
+    log({"phase": "kernel A at 8x8 (rows wider than shared memory)", "card": card_line(), **out})
+    return out
+
+
+TREE_FLOATS = ("child_logit", "child_prob", "child_value", "child_std", "root_value", "root_std")
+
+
+def expect_trees_close(a, b, what: str, tol: float) -> None:
+    """Tree ``a`` (card) against ``b`` (CPU) outside the scratch row: every
+    integer array equal, the float arrays of TREE_FLOATS within ``tol``."""
+    import torch
+
+    for name, x in a._asdict().items():
+        y = getattr(b, name)
+        for u, v in (zip(x, y) if name == "node_env" else [(x, y)]):
+            u = u.cpu()
+            if u.dim() >= 2 and name != "free_rows":
+                u, v = u[:, :-1], v[:, :-1]
+            if name in TREE_FLOATS:
+                torch.testing.assert_close(u, v, rtol=tol, atol=tol, msg=lambda m: f"{what}: {name}: {m}")
+            elif not torch.equal(u, v):
+                raise AssertionError(f"{what}: {name} differs between the card and the CPU")
+
+
+def run_search_8x8(dev, gen) -> dict:
+    """3c: the Gumbel search at 8x8.  (a) The small net of
+    tests/test_torch_bigboards.py (8 filters, 1 block, float32, no novelty;
+    2 games, k=4, budget 16, 24 rows, C=64) on the card against the CPU:
+    trees equal, floats within 1e-4 (summation order).  (b) One search at
+    the default 16x256 bf16 width with SimHash over 2^32 bits: 128 games,
+    k=8, budget 24, C=256: chosen actions legal, the root-visit invariant,
+    and both kernels launched budget+1 times."""
+    import torch
+
+    from takzero_torch.models.agent import make_net_evaluate, new_agent
+    from takzero_torch.models.network import NetConfig
+    from takzero_torch.search.gumbel import make_gumbel_search
+    from takzero_torch.search.openings import make_new_opening
+    from takzero_torch.search.policy import slot_action
+    from takzero_torch.search.tree import init_tree
+    from takzero_torch.selfplay import gumbel_noise
+    from takzero_torch.tak.engine import engine
+
+    eng = engine(8, half_komi=4)
+    small = NetConfig(n=8, half_komi=4, filters=8, blocks=1, novelty="none", compute_dtype=torch.float32)
+    cpu_gen = torch.Generator().manual_seed(8)
+    sym, pair = torch.randint(0, 8, (2,), generator=cpu_gen), torch.randint(0, 2, (2,), generator=cpu_gen)
+    gumbel = gumbel_noise(cpu_gen, (2, 64))
+    trees = {}
+    for where in ("cpu", dev):
+        agent = new_agent(small, seed=0, device=where)
+        evaluate = make_net_evaluate(small, eng, device=where)
+        envs = make_new_opening(eng)(sym.to(where), pair.to(where))
+        search = make_gumbel_search(eng, lambda e: evaluate(agent, e), 4, 16, max_depth=16)
+        trees[str(where)] = search(init_tree(eng, envs, 24, 64), gumbel.to(where), torch.zeros(2, device=where))
+    (t_card, s_card), (t_cpu, s_cpu) = trees[str(dev)], trees["cpu"]
+    expect_trees_close(t_card, t_cpu, "8x8 search, small net", 1e-4)
+    if not torch.equal(s_card.cpu(), s_cpu):
+        raise AssertionError("8x8 search, small net: chosen slots differ between the card and the CPU")
+
+    cfg = NetConfig(n=8, half_komi=4)  # 16x256 bf16, SimHash over 2^32 bits
+    batch, k, budget, children = 128, 8, 24, 256
+    agent = new_agent(cfg, seed=0, device=dev)
+    evaluate = make_net_evaluate(cfg, eng, device=dev)
+    envs = random_positions(eng, batch, 16, gen, dev)
+    search = make_gumbel_search(eng, lambda e: evaluate(agent, e), k, budget, max_depth=48)
+    tree = init_tree(eng, envs, budget + 8, children)
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    tree, slot = search(tree, gumbel_noise(gen, (batch, children)), torch.zeros(batch, device=dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _expect_launches("8x8 search at 16x256", budget + 1, 1)
+    action = slot_action(tree, slot).to(torch.int64)
+    if not bool(eng.legal_mask(envs).gather(1, action[:, None]).all()):
+        raise AssertionError("8x8 search: an illegal action was chosen")
+    valid = tree.child_action[:, 0, :] >= 0
+    if not torch.equal(tree.root_visit.long(), torch.where(valid, tree.child_visit[:, 0, :], 0).sum(-1).long() + 1):
+        raise AssertionError("8x8 search: a root's visits are not its children's plus one")
+    for name in TREE_FLOATS[2:]:
+        if not bool(torch.isfinite(getattr(tree, name)).all()):
+            raise AssertionError(f"8x8 search: non-finite {name}")
+    out = {"phase": "8x8 search", "card": card_line(), "small_net_card_vs_cpu": "trees equal (floats 1e-4)",
+           "net": "8x8 16x256 bf16, SimHash 2^32", "batch": batch, "k": k, "budget": budget, "children": children,
+           "seconds": seconds, "sims_per_s": batch * (budget + 1) / seconds, "launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    log(out)
+    del agent, tree
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_small_reference(dev) -> None:
     """The 3x3 move program and a small network, on the card vs the CPU."""
     import dataclasses
@@ -477,7 +633,9 @@ def run_main_path(dev) -> tuple[dict, object]:
     from takzero_torch.ops import simhash, topk
     from takzero_torch.tak.engine import engine
 
-    cfg = bench.BenchConfig()  # the flagship configuration, two timed moves
+    # The flagship configuration, one timed move after the warm-up (the
+    # bench's default is two: cut to keep the smoke inside its time).
+    cfg = bench.BenchConfig(moves=1)
     topk.exact_top_k_unsorted.launches = 0
     simhash.simhash_pack.launches = 0
     res = bench.run(cfg, device=dev)
@@ -1003,13 +1161,12 @@ MATCH_RESULT = re.compile(
 )
 INFO_LINE = re.compile(r"info time (\d+) nodes (\d+) nps (\d+) score (cp -?\d+|mate -?\d+) pv((?: \S+)+)")
 
-# 6x6 win-in-1 positions with both capstones placed (the reference's
-# puzzle filter), white to move: a road completes on rank 1 or file a.
-WIN_IN_1 = [
-    ("x6/x6/x6/1C,x4,2C/2,2,2,2,2,x/1,1,1,1,1,x 1 7", "f1"),
-    ("x6/x6/x6/2C,x4,1C/x,2,2,2,2,2/x,1,1,1,1,1 1 7", "a1"),
-    ("x,2,x4/1,2,x4/1,2,x4/1,2,x2,1C,2C/1,2,x4/1,x5 1 7", "a6"),
-]
+# The repository's 6x6 puzzle database (238 puzzles: tinue at depths
+# 3/5/7/9, avoidance at 2/4/6; examples/puzzle_benchmark_6x6.json holds the
+# JAX package's results on it).
+PUZZLE_DB = Path(__file__).resolve().parent / "examples" / "puzzles_6x6.db"
+PUZZLE_COUNTS = {("tinue", 3): 50, ("tinue", 5): 20, ("tinue", 7): 20, ("tinue", 9): 10,
+                 ("avoidance", 2): 41, ("avoidance", 4): 38, ("avoidance", 6): 59}
 
 
 @contextlib.contextmanager
@@ -1287,8 +1444,9 @@ def run_evaluation(dev, games: int = 32, sampled: int = 4, budget: int = 8, max_
 
 
 def run_puzzles(engine_, dev, sampled: int = 8, budget: int = 24) -> dict:
-    """10f: the puzzle driver at net6_simhash on a database it writes."""
-    import sqlite3
+    """10f: the puzzle driver at net6_simhash on the repository's database,
+    every category and depth, in batches of 64."""
+    import math
 
     import torch
 
@@ -1296,32 +1454,27 @@ def run_puzzles(engine_, dev, sampled: int = 8, budget: int = 24) -> dict:
     from takzero_torch.utils import ckpt
 
     with tempfile.TemporaryDirectory(prefix="takzero_puzzle_") as d:
-        db = f"{d}/puzzles.db"
-        con = sqlite3.connect(db)
-        con.execute("CREATE TABLE games (id INTEGER PRIMARY KEY, size INTEGER)")
-        con.execute("""CREATE TABLE puzzles (
-            game_id INTEGER, tps TEXT, solution TEXT,
-            tinue_length INTEGER, tinue_avoidance_length INTEGER,
-            tiltak_2komi_second_move_eval REAL, tiltak_2komi_eval REAL)""")
-        con.execute("INSERT INTO games VALUES (1, 6)")
-        con.executemany("INSERT INTO puzzles VALUES (1, ?, ?, 1, NULL, 0.0, 0.0)", WIN_IN_1)
-        con.commit()
-        con.close()
         model = ckpt.save_checkpoint(d, "model.ckpt", ckpt.strip_hash_bits(engine_.bundle))
         _zero_launch_counts()
         t0 = time.perf_counter()
-        results = puzzle.main(["--model", str(model), "--puzzle-db", db, "--net", "net6_simhash", "--depths", "1",
-                               "--avoidance-depths", "", "--sampled-actions", str(sampled),
-                               "--search-budget", str(budget), "--device", str(dev)])
+        results = puzzle.main(["--model", str(model), "--puzzle-db", str(PUZZLE_DB), "--net", "net6_simhash",
+                               "--depths", "3,5,7,9", "--avoidance-depths", "2,4,6",
+                               "--sampled-actions", str(sampled), "--search-budget", str(budget),
+                               "--device", str(dev)])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    launches = _expect_launches("puzzle driver", budget + 1, 1)  # one batch of 64
-    if [(r.category, r.attempted) for r in results] != [("tinue", len(WIN_IN_1))]:
-        raise AssertionError(f"puzzle driver: {results}")
-    r = results[0]
-    out = {"phase": "serve: puzzle driver", "card": card_line(), "rows": len(WIN_IN_1), "attempted": r.attempted,
-           "solved": r.solved, "proven": r.proven, "nodes": r.nodes, "nodes_incomplete": r.nodes_incomplete,
-           "cuts": {"sampled": sampled, "budget": budget}, "seconds": seconds, "launches": launches}
+    batches = sum(math.ceil(n / puzzle.BATCH_SIZE) for n in PUZZLE_COUNTS.values())
+    launches = _expect_launches("puzzle driver", budget + 1, batches)
+    got = [(r.category, r.attempted) for r in results]
+    if got != [(c, n) for (c, _), n in PUZZLE_COUNTS.items()]:
+        raise AssertionError(f"puzzle driver attempted {got}, the database holds {list(PUZZLE_COUNTS.values())}")
+    per_depth = {f"{c}{d}": {"attempted": r.attempted, "solved": r.solved, "proven": r.proven, "nodes": r.nodes,
+                             "nodes_incomplete": r.nodes_incomplete}
+                 for (c, d), r in zip(PUZZLE_COUNTS, results)}
+    out = {"phase": "serve: puzzle driver", "card": card_line(), "database": "examples/puzzles_6x6.db",
+           "puzzles": sum(PUZZLE_COUNTS.values()), "batches": batches, "results": per_depth,
+           "cuts": {"sampled": sampled, "budget": budget}, "seconds": seconds,
+           "seconds_per_batch": seconds / batches, "launches": launches}
     log(out)
     return out
 
@@ -1347,6 +1500,184 @@ def run_serve_path(dev, gen) -> dict:
     torch.cuda.empty_cache()
     log({"phase": "serve path done", "midgame_tps": tps, "seconds": time.perf_counter() - t0})
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 11-12: one-process training.
+# ---------------------------------------------------------------------------
+
+
+class _CountingDraws:
+    """The co-scheduled driver's own draws (one generator, the same order),
+    reading the launch counters as each move takes its draws: ``snaps``
+    holds (counters, reanalyze batches of the move before) per move."""
+
+    def __init__(self, gen):
+        from takzero_torch.drivers.coscheduled import GeneratorDraws
+
+        self.inner, self.snaps, self.searches = GeneratorDraws(gen), [], 0
+
+    def opening(self, batch: int, children: int) -> dict:
+        return self.inner.opening(batch, children)
+
+    def mark(self) -> None:
+        """Close the move before (with its reanalyze batches); open one."""
+        if self.snaps:
+            self.snaps[-1] = (self.snaps[-1][0], self.searches)
+        self.snaps.append((_launch_counts(), 0))
+        self.searches = 0
+
+    def move(self, batch: int, children: int) -> dict:
+        self.mark()
+        return self.inner.move(batch, children)
+
+    def search(self, batch: int, children: int):
+        self.searches += 1
+        return self.inner.search(batch, children)
+
+
+def run_coscheduled(dev, net: str = "net4_simhash", batch: int = 128, sampled: int = 8, budget: int = 24,
+                    moves: int = 52, min_positions: int = 2048) -> dict:
+    """11: ``takzero_torch.drivers.coscheduled`` at full width with reanalyze."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.drivers import coscheduled
+    from takzero_torch.ops.bitset import bitset_init, bitset_set
+    from takzero_torch.parallel import coordinator as co
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.utils import ckpt
+
+    t_phase = time.perf_counter()
+    cfg = NET_PRESETS[net]
+    eng = engine(cfg.n, half_komi=cfg.half_komi)
+    per = budget + 1
+    with tempfile.TemporaryDirectory(prefix="takzero_cosched_") as d:
+        argv = ["--directory", d, "--net", net, "--seed", "0", "--batch", str(batch), "--budget", str(budget),
+                "--sampled", str(sampled), "--batch-size", str(batch), "--reanalyze",
+                "--reanalyze-min-positions", str(min_positions), "--reanalyze-batch", str(batch),
+                "--steps-before-reanalyze", "12", "--pretrain-steps", "10", "--pretrain-targets", str(10 * batch),
+                "--max-moves", str(moves), "--device", str(dev)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launch_counts()
+        draws = _CountingDraws(torch.Generator(device=dev).manual_seed(0))
+        out = coscheduled.main(argv, draws=draws)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        draws.mark()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        agent = out.pop("agent")
+        searches = out["moves"] + out["reanalyze_batches"]
+        want = {"exact_top_k_unsorted": per * searches,
+                "simhash_pack": per * searches + 2 * (out["pretrain_steps"] + out["train_steps"])}
+        if launches != want:
+            raise AssertionError(f"coscheduled: launches {launches}, expected {want} (budget+1 per search of "
+                                 f"{searches}, B 2 per train step)")
+        # Each move, from its draws to the next move's: the search, the
+        # reanalyze batches it ran and its train steps.
+        per_move = [({k: b[k] - a[k] for k in a}, n) for (a, n), (b, _) in zip(draws.snaps, draws.snaps[1:])]
+        bad = [i for i, (m, n) in enumerate(per_move) if m["exact_top_k_unsorted"] != per * (1 + n)]
+        if len(per_move) != out["moves"] or bad:
+            raise AssertionError(f"coscheduled: moves {bad} launched A other than {per} per search")
+        if out["reanalyze_batches"] < 2 or out["mixed_steps"] < 2:
+            raise AssertionError(f"coscheduled: {out['reanalyze_batches']} reanalyze batches and "
+                                 f"{out['mixed_steps']} mixed steps, at least 2 of each expected")
+        metrics = out["final_metrics"] or {}
+        if out["nonfinite_steps"] or not metrics or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"coscheduled: non-finite losses ({out['nonfinite_steps']} steps, last {metrics})")
+        text = lambda name: open(f"{d}/{name}", encoding="utf-8").read()  # noqa: E731
+        lines = {"selfplay": check_target_lines(eng, text(co.TARGETS_SELFPLAY), "targets-selfplay.txt"),
+                 "reanalyze": check_target_lines(eng, text(co.TARGETS_REANALYZE), "targets-reanalyze.txt"),
+                 "initial": check_target_lines(eng, text(co.TARGETS_INITIAL), "targets-initial.txt"),
+                 "replays": check_replays(eng, text(co.REPLAYS).splitlines(), "replays.txt")}
+        if lines["selfplay"] != out["targets"] or lines["reanalyze"] != out["reanalyze_targets"]:
+            raise AssertionError(f"coscheduled: {lines} lines in the files, the driver counted {out}")
+        if lines["replays"] != out["replays"] or out["replays"] < batch:
+            raise AssertionError(f"coscheduled: {lines['replays']} replays in the file, {out['replays']} counted, "
+                                 f"at least {batch} games expected to end")
+        if text(co.BUFFER_LENGTHS).count(",") != 2:
+            raise AssertionError("coscheduled: buffer_lengths.txt is not written")
+        step, path = ckpt.model_path_with_most_steps(d)
+        first, last = ckpt.read_checkpoint(f"{d}/model_0000000.ckpt"), ckpt.read_checkpoint(path)
+        if step != out["model_steps"] or all(torch.equal(first["net"][k], v) for k, v in last["net"].items()):
+            raise AssertionError(f"coscheduled: step checkpoint {path} equals model_0000000.ckpt")
+        if "hash_bits" in ckpt.read_checkpoint(ckpt.latest_path(d)):
+            raise AssertionError("coscheduled: model_latest.ckpt holds the seen-set")
+        idx, _ = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)
+        seen = bitset_set(bitset_init(cfg.hash_bits, dev), torch.from_numpy(idx.astype(np.int64)).to(dev))
+        if not torch.equal(seen, agent["hash_bits"]) or not torch.equal(seen.cpu(), last["hash_bits"]):
+            raise AssertionError("coscheduled: bitset_set of hash_log.bin differs from the in-process seen-set")
+        del first, last, seen, agent
+    torch.cuda.empty_cache()
+    res = {
+        "phase": "coscheduled driver", "card": card_line(),
+        "net": f"{net} ({cfg.blocks}x{cfg.filters} {str(cfg.compute_dtype).split('.')[-1]}, SimHash 2^{cfg.hash_bits})",
+        "cuts": {"batch": batch, "sampled": sampled, "budget": budget, "reanalyze_batch": batch,
+                 "reanalyze_min_positions": min_positions, "steps_before_reanalyze": 12, "pretrain_steps": 10,
+                 "pretrain_targets": 10 * batch, "max_moves": moves},
+        **{k: out[k] for k in ("moves", "train_steps", "pretrain_steps", "mixed_steps", "reanalyze_batches",
+                                "targets", "reanalyze_targets", "replays", "model_steps", "seconds")},
+        "moves_per_s": out["moves"] / out["seconds"],
+        "selfplay_moves_per_s": out["moves"] / out["selfplay_seconds"],
+        "reanalyze_targets_per_s": out["reanalyze_targets"] / max(out["reanalyze_seconds"], 1e-9),
+        "train_steps_per_s_host_enqueue": out["train_steps"] / max(out["train_seconds"], 1e-9),
+        "train_steps_per_s_loop": out["train_steps"] / out["seconds"], "final_metrics": metrics,
+        "lines_checked": lines, "launches": launches,
+        "launches_per_move": per_move[-1][0], "reanalyze_batches_last_move": per_move[-1][1],
+        "launches_per_move_range": {k: [min(m[k] for m, _ in per_move), max(m[k] for m, _ in per_move)]
+                                    for k in launches},
+        "peak_memory_gb": peak_gb, "phase_seconds": time.perf_counter() - t_phase,
+    }
+    log(res)
+    return res
+
+
+def run_tiny_run(dev, iters: int = 1, eval_games: int = 8) -> dict:
+    """12: ``python -m takzero_torch.tiny_run`` at its defaults, cut to
+    ``iters`` iterations and ``eval_games`` evaluation games: the summary
+    parses, games = 2 x eval_games, the final loss is finite (no Elo gate:
+    one iteration does not train a net)."""
+    import math
+
+    import torch
+
+    from takzero_torch import tiny_run
+
+    snaps = {}  # the counters after pre-training (-1) and after each iteration
+    with tempfile.TemporaryDirectory(prefix="takzero_tiny_") as d:
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        res = tiny_run.main(["--iters", str(iters), "--eval-games", str(eval_games), "--out", f"{d}/tiny_run.json",
+                             "--device", str(dev)], on_iteration=lambda it: snaps.__setitem__(it, _launch_counts()))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        summary = json.loads(Path(f"{d}/tiny_run.json").read_text(encoding="utf-8"))
+    del res["agent"], res["initial_agent"]
+    keys = {"wins", "losses", "draws", "games", "elo_gain", "final_loss", "wall_s", "card"}
+    if set(summary) != keys or summary["games"] != 2 * eval_games:
+        raise AssertionError(f"tiny_run summary: {summary}")
+    if summary["final_loss"] is None or not math.isfinite(summary["final_loss"]):
+        raise AssertionError(f"tiny_run: final loss {summary['final_loss']}")
+    per = 48 + 1  # tiny_run's budget
+    searches = iters * 12 + res["eval_half_moves"]
+    # B: every evaluation, and each train step's hash_update (tiny_run keeps no hash log).
+    want = {"exact_top_k_unsorted": per * searches, "simhash_pack": per * searches + res["train_steps"]}
+    if launches != want:
+        raise AssertionError(f"tiny_run: launches {launches}, expected {want}")
+    # One iteration (12 moves, 16 train steps), read from the counters around it.
+    per_iter = {k: snaps[iters - 1][k] - snaps[iters - 2][k] for k in launches}
+    if per_iter != {"exact_top_k_unsorted": 12 * per, "simhash_pack": 12 * per + 16}:
+        raise AssertionError(f"tiny_run: {per_iter} launches in iteration {iters - 1}, expected {per} per move "
+                             "of 12, plus B once per train step of 16")
+    out = {"phase": "tiny_run", "card": card_line(), "cuts": {"iters": iters, "eval_games": eval_games},
+           "summary": summary, "train_steps": res["train_steps"], "eval_half_moves": res["eval_half_moves"],
+           "launches": launches, "launches_per_iteration": per_iter, "seconds": seconds}
+    log(out)
+    return out
 
 
 def main() -> int:
@@ -1384,6 +1715,8 @@ def main() -> int:
     if kernels_only:
         log({"phase": "done", "seconds": time.perf_counter() - t_start, "kernels_only": True})
         return 0
+    topk_8x8 = check_topk_8x8(gen, dev)
+    search_8x8 = run_search_8x8(dev, gen)
     check_small_reference(dev)
     launches, _ = run_main_path(dev)
     check_learner_small_reference(dev)
@@ -1391,6 +1724,8 @@ def main() -> int:
     at_4x4 = check_kernels_4x4(gen, dev)
     loop = run_actor_loop(dev)
     serve = run_serve_path(dev, gen)
+    cosched = run_coscheduled(dev)
+    tiny = run_tiny_run(dev)
 
     kernels = []
     for name, out, source, replaces in (
@@ -1413,7 +1748,14 @@ def main() -> int:
             "serve_call_ms": serve["kernels"][name]["call_ms"], "serve_bound_ms": serve["kernels"][name]["bound_ms"],
             "serve_plain_ms": serve["kernels"][name]["plain_ms"],
             "serve_library_ms": serve["kernels"][name]["library_ms"],
+            "search_8x8_launches": search_8x8["launches"][name],
+            "coscheduled_launches": cosched["launches"][name],
+            "coscheduled_launches_per_move": cosched["launches_per_move"][name],
+            "tiny_run_launches": tiny["launches"][name],
+            "tiny_run_launches_per_iteration": tiny["launches_per_iteration"][name],
         })
+    kernels[0]["at_8x8"] = {k: topk_8x8[k] for k in ("shape", "k", "kernel_ms", "call_ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "bound_by", "adversarial_rows_kernel_ms")}
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())
     log({"kernels": kernels})

@@ -34,6 +34,19 @@
 // Signed zeros: -0.0 is keyed as +0.0, so the two tie and resolve by index
 // as in the reference's stable sort on (-x, index).  The TPU kernel keys on
 // raw bits and orders -0.0 below +0.0; this kernel follows the reference.
+//
+// Rows too wide for shared memory (8 bytes an entry above 27,904 entries;
+// 8x8 has A = 65,216, 510 KB) take a second kernel, topk_wide_kernel, with
+// the same steps and the row left in device memory: the histogram sweep and
+// the threshold-bin sweep read the row from global memory, the candidates
+// go to a workspace in device memory that the wrapper allocates ([rows, A]
+// words), the last two digits are resolved there, and the emit walks the
+// row in tiles of 31 keys a thread, carrying the counts of earlier tiles.
+// Bound at f32[128, 65216], k = 256: 33.4 MB read, about 10 us at
+// 3.35 TB/s.  The whole input fits the H100's 50 MB L2, so the sweeps after
+// the first mostly hit L2.  A cluster split over distributed shared memory
+// was not taken: at the search's 128 rows one block a row already holds 128
+// of the 132 SMs, so a split would add no SMs, only cluster barriers.
 
 #include <atomic>
 #include <cstdint>
@@ -294,6 +307,164 @@ topk_rows_kernel(const float* __restrict__ x, float* __restrict__ vals,
   }
 }
 
+constexpr int kWideChunk = 31;  // keys a thread owns in one emit tile (odd, < 32)
+
+// The same select for a row in device memory; `work` holds the row's
+// threshold-bin keys (at most a).
+__global__ void __launch_bounds__(kThreads)
+topk_wide_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                 int* __restrict__ idx, uint32_t* __restrict__ work, int a, int k) {
+  __shared__ int hist[kBins];
+  __shared__ int scratch[kWarps];
+  __shared__ Pick pick;
+  __shared__ int s_ncand, s_total;
+  __shared__ uint32_t s_min, s_max;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const size_t roff = static_cast<size_t>(blockIdx.x) * a;
+  const uint32_t* xr = reinterpret_cast<const uint32_t*>(x) + roff;
+  uint32_t* cand = work + roff;
+
+  for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+  if (tid == 0) {
+    s_ncand = 0;
+    s_min = 0xffffffffu;
+    s_max = 0u;
+  }
+  __syncthreads();
+  // Sweep 1: the top digits' histogram, straight from device memory.
+  int swept = 0;
+  if ((reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
+    const int n4 = a >> 2;
+    const uint4* x4 = reinterpret_cast<const uint4*>(xr);
+    for (int base = 0; base < n4; base += kLoads * kThreads) {
+      uint4 v[kLoads];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int q = base + j * kThreads + tid;
+        if (q < n4) v[j] = __ldg(x4 + q);
+      }
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int q = base + j * kThreads + tid;
+        if (q < n4) {
+          atomicAdd(&hist[order_key(v[j].x) >> 21], 1);
+          atomicAdd(&hist[order_key(v[j].y) >> 21], 1);
+          atomicAdd(&hist[order_key(v[j].z) >> 21], 1);
+          atomicAdd(&hist[order_key(v[j].w) >> 21], 1);
+        }
+      }
+    }
+    swept = 4 * n4;
+  }
+  for (int i = swept + tid; i < a; i += kThreads) atomicAdd(&hist[order_key(__ldg(xr + i)) >> 21], 1);
+  __syncthreads();
+  pick_bin<2>(hist, k, scratch, &pick);
+  uint32_t prefix = static_cast<uint32_t>(pick.bin) << 21;
+  uint32_t mask = 0xffe00000u;
+  int remaining = pick.remaining;
+
+  if (pick.count != remaining) {
+    // Sweep 2: the threshold bin's count, least and greatest key.
+    const int nc = pick.count;
+    int count = 0;
+    uint32_t lo = 0xffffffffu, hi = 0u;
+#pragma unroll 4
+    for (int i = tid; i < a; i += kThreads) {
+      const uint32_t key = order_key(__ldg(xr + i));
+      if ((key & mask) == prefix) {
+        ++count;
+        lo = min(lo, key);
+        hi = max(hi, key);
+      }
+    }
+    count = __reduce_add_sync(kFull, count);
+    lo = __reduce_min_sync(kFull, lo);
+    hi = __reduce_max_sync(kFull, hi);
+    int pos = 0;
+    if (lane == 0) {
+      atomicMin(&s_min, lo);
+      atomicMax(&s_max, hi);
+      pos = atomicAdd(&s_ncand, count);
+    }
+    pos = __shfl_sync(kFull, pos, 0);
+    __syncthreads();
+    if (s_min == s_max) {
+      prefix = s_min;
+      mask = 0xffffffffu;
+    } else {
+      // Sweep 3: the candidates out to the workspace, each warp into its range.
+      for (int base = 0; base < a; base += kThreads) {
+        const int i = base + tid;
+        const uint32_t key = i < a ? order_key(__ldg(xr + i)) : 0u;
+        const bool in_bin = i < a && (key & mask) == prefix;
+        const unsigned hit = __ballot_sync(kFull, in_bin);
+        if (in_bin) cand[pos + __popc(hit & ((1u << lane) - 1u))] = key;
+        pos += __popc(hit);
+      }
+      for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+      __syncthreads();  // also orders the candidates' stores before their reads
+      histogram(hist, nc, [&](int i) { return static_cast<int>((cand[i] >> 10) & 0x7ffu); });
+      __syncthreads();
+      pick_bin<2>(hist, remaining, scratch, &pick);
+      prefix |= static_cast<uint32_t>(pick.bin) << 10;
+      mask = 0xfffffc00u;
+      remaining = pick.remaining;
+      if (pick.count != remaining) {
+        for (int i = tid; i < kThreads; i += kThreads) hist[i] = 0;
+        __syncthreads();
+        histogram(hist, nc, [&](int i) {
+          const uint32_t key = cand[i];
+          return (key & mask) == prefix ? static_cast<int>(key & 0x3ffu) : -1;
+        });
+        __syncthreads();
+        pick_bin<1>(hist, remaining, scratch, &pick);
+        prefix |= static_cast<uint32_t>(pick.bin);
+        mask = 0xffffffffu;
+        remaining = pick.remaining;
+      }
+    }
+  }
+
+  // Emit, a tile of kWideChunk * kThreads keys at a time in index order:
+  // each thread's contiguous chunk gives two bit masks, one block scan of
+  // packed 16-bit (greater, equal) counts places them within the tile (a
+  // tile holds 31,744 keys, so neither half overflows), and the counts of
+  // the earlier tiles are carried.
+  float* vr = vals + static_cast<size_t>(blockIdx.x) * k;
+  int* ir = idx + static_cast<size_t>(blockIdx.x) * k;
+  int carry_gt = 0, carry_eq = 0;
+  for (int t0 = 0; t0 < a; t0 += kWideChunk * kThreads) {
+    const int lo = min(a, t0 + tid * kWideChunk), n = min(a, lo + kWideChunk) - lo;
+    uint32_t gt_bits = 0u, eq_bits = 0u;
+    for (int j = 0; j < n; ++j) {
+      const uint32_t key = order_key(__ldg(xr + lo + j)) & mask;
+      gt_bits |= static_cast<uint32_t>(key > prefix) << j;
+      eq_bits |= static_cast<uint32_t>(key == prefix) << j;
+    }
+    const int n_gt = __popc(gt_bits), n_eq = __popc(eq_bits);
+    const int packed = (n_gt << 16) | n_eq;
+    const int before = block_exclusive_scan(packed, scratch);
+    if (tid == kThreads - 1) s_total = before + packed;
+    const int eq_before = carry_eq + (before & 0xffff);
+    int take_eq = min(max(remaining - eq_before, 0), n_eq);
+    uint32_t sel = gt_bits;
+    for (; take_eq > 0; --take_eq) {
+      sel |= eq_bits & (0u - eq_bits);
+      eq_bits &= eq_bits - 1u;
+    }
+    int out = carry_gt + (before >> 16) + min(eq_before, remaining);
+    for (; sel != 0u; sel &= sel - 1u, ++out) {
+      const int i = lo + __ffs(sel) - 1;
+      vr[out] = __uint_as_float(__ldg(xr + i));
+      ir[out] = i;
+    }
+    __syncthreads();  // s_total written; scratch free for the next tile
+    carry_gt += s_total >> 16;
+    carry_eq += s_total & 0xffff;
+  }
+}
+
 // Set the kernel's shared-memory limit once per device and process.
 cudaError_t configure_once() {
   static std::atomic<unsigned> configured{0};
@@ -324,5 +495,15 @@ extern "C" int topk_launch(const void* x, void* vals, void* idx, int rows, int a
   topk_rows_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(vals),
       static_cast<int*>(idx), a, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same for rows too wide for shared memory: `work` is u32[rows, a] of
+// device memory for the candidates.  No dynamic shared memory.
+extern "C" int topk_wide_launch(const void* x, void* vals, void* idx, void* work, int rows,
+                                int a, int k, void* stream) {
+  topk_wide_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(vals), static_cast<int*>(idx),
+      static_cast<uint32_t*>(work), a, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""Command-line drivers: ``learn``, ``selfplay``, ``reanalyze``, ``evaluation``,
-``puzzle``, ``tei`` and ``analysis``."""
+"""Command-line drivers: ``learn``, ``selfplay``, ``reanalyze``, ``coscheduled``,
+``evaluation``, ``puzzle``, ``tei`` and ``analysis``."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ def refuse_unported(args) -> None:
     if args.devices is not None or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
             "takzero_torch runs on one device: --devices and multihost runs are not "
-            "ported yet (ROADMAP.md queue 1, item 11)"
+            "ported yet (ROADMAP.md queue 1, item 5)"
         )
     if args.net in NOT_PORTED_PRESETS:
         raise NotImplementedError(

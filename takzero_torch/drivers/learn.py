@@ -64,6 +64,33 @@ def chunk_len(model_steps: int, chunk_steps: int, cfg, cross_reanalyze: bool,
     return max(c, 1)
 
 
+def pretrain(directory, eng, net_cfg, cfg, bundle: dict, opt, train_step, rng, dev) -> int:
+    """The learner's pre-training phase (learn/src/main.rs:139-171): append
+    ``cfg.initial_random_targets`` random-game targets to
+    ``targets-initial.txt`` and take up to ``cfg.pre_training_steps`` steps
+    on them without UBE.  Returns ``(steps, pairs)``: the steps taken and,
+    for SimHash nets, the device ``(indices, fresh)`` pair of each step.
+    The caller logs the pairs and saves the step checkpoint, each driver in
+    its own order."""
+    log.info("pre-training on %d random targets", cfg.initial_random_targets)
+    targets = random_pretraining_targets(eng, cfg.initial_random_targets, rng, device=dev)
+    co.append_lines(directory, co.TARGETS_INITIAL, [t.to_line() for t in targets])
+    rng.shuffle(targets)
+    pairs, steps = [], 0
+    for i in range(cfg.pre_training_steps):
+        chunk = targets[i * cfg.batch_size : (i + 1) * cfg.batch_size]
+        if len(chunk) < cfg.batch_size:
+            break
+        batch = make_batch_native(eng, "".join(t.to_line() + "\n" for t in chunk), rng, device=dev)
+        if net_cfg.novelty == "simhash":
+            pairs.append(hash_indices_fresh(net_cfg, bundle, batch.planes))
+        m = train_step(bundle, opt, batch, train_ube=False)
+        if i % 100 == 0:
+            log.info("pretrain %d: %s", i, {k: float(v) for k, v in m.items()})
+        steps += 1
+    return steps, pairs
+
+
 def main(argv=None) -> dict:
     """Run the learner; returns the main loop's counts and host times:
     ``steps``, ``seconds`` (wall time of the loop, device included) and
@@ -139,20 +166,8 @@ def main(argv=None) -> dict:
             steps += 1
         ckpt.save_checkpoint(args.directory, f"model_{steps:07d}.ckpt", bundle)
     elif steps == 0 and cfg.pre_training_steps > 0:
-        log.info("pre-training on %d random targets", cfg.initial_random_targets)
-        targets = random_pretraining_targets(eng, cfg.initial_random_targets, rng, device=dev)
-        co.append_lines(args.directory, co.TARGETS_INITIAL, [t.to_line() for t in targets])
-        rng.shuffle(targets)
-        for i in range(cfg.pre_training_steps):
-            chunk = targets[i * cfg.batch_size : (i + 1) * cfg.batch_size]
-            if len(chunk) < cfg.batch_size:
-                break
-            batch = batch_of([t.to_line() for t in chunk])
-            boot_idx.append(fresh_pair(batch.planes))
-            m = train_step(bundle, opt, batch, train_ube=False)
-            if i % 100 == 0:
-                log.info("pretrain %d: %s", i, {k: float(v) for k, v in m.items()})
-            steps += 1
+        n, boot_idx = pretrain(args.directory, eng, net_cfg, cfg, bundle, opt, train_step, rng, dev)
+        steps += n
         ckpt.save_checkpoint(args.directory, f"model_{steps:07d}.ckpt", bundle)
 
     if hash_logged and boot_idx:

@@ -65,6 +65,22 @@ def pack_rows(n: int, states) -> np.ndarray:
     return buf
 
 
+def reanalyze_batch(eng, step, agent, picks: list, gumbel: torch.Tensor):
+    """Search packed positions ``picks`` with fresh trees on ``gumbel``'s
+    device and build their targets.  Returns ``(targets, host_seconds)``,
+    the host time spent on TPS strings and target rows."""
+    n = eng.n
+    t0 = time.perf_counter()
+    states = nl.unpack_states(n, np.stack(picks))
+    tps_batch = [state_to_tps(n, states.map(lambda x: x[i])) for i in range(len(picks))]
+    host_s = time.perf_counter() - t0
+    out = step(states.map(lambda x: x.to(gumbel.device)), agent, gumbel)
+    _, pol, child_actions, ube, value, incomplete = (x.cpu() for x in out)
+    t0 = time.perf_counter()
+    targets = build_targets(n, tps_batch, pol, child_actions, ube, value, incomplete=incomplete, eng=eng)
+    return targets, host_s + time.perf_counter() - t0
+
+
 def main(argv=None) -> dict:
     """Run the actor; returns its counts and host times: ``steps``
     (searches), ``seconds`` (wall time of the loop), ``explode_seconds``
@@ -140,17 +156,13 @@ def main(argv=None) -> dict:
         picks = positions.sample(cfg.batch_size - n_expl)
         if n_expl:
             picks = picks + expl_positions.sample(n_expl)
-        states = nl.unpack_states(n, np.stack(picks))
-        tps_batch = [state_to_tps(n, states.map(lambda x: x[i])) for i in range(len(picks))]
         gumbel = gumbel_noise(gen, (len(picks), max_children))
         t1 = time.perf_counter()
         host_s += t1 - t0
-        out = step(states.map(lambda x: x.to(dev)), agent, gumbel)
-        _, pol, child_actions, ube, value, incomplete = (x.cpu() for x in out)
-        t0 = time.perf_counter()
-        targets = build_targets(n, tps_batch, pol, child_actions, ube, value, incomplete=incomplete, eng=eng)
+        targets, batch_host_s = reanalyze_batch(eng, step, agent, picks, gumbel)
+        t2 = time.perf_counter()
         co.append_lines(args.directory, co.TARGETS_REANALYZE, [t.to_line() for t in targets])
-        host_s += time.perf_counter() - t0
+        host_s += batch_host_s + time.perf_counter() - t2
         searches += 1
         n_targets += len(targets)
         log.info("step %d: %d targets in %.2fs", loops, len(targets), time.perf_counter() - t1)

@@ -29,7 +29,8 @@ NVCC_FLAGS = [
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (source, {symbol: argtypes})
 KERNELS = {
-    "topk": ("topk.cu", {"topk_launch": [_P, _P, _P, _I, _I, _I, _P]}),
+    "topk": ("topk.cu", {"topk_launch": [_P, _P, _P, _I, _I, _I, _P],
+                         "topk_wide_launch": [_P, _P, _P, _P, _I, _I, _I, _P]}),
     "simhash": ("simhash.cu", {"simhash_launch": [_P, _P, _P, _I, _I, _I, _P]}),
 }
 

@@ -17,9 +17,12 @@ places the outputs in index order with one block-wide scan.  It is
 memory-bound: at the main path's f32[128, 9036], k=256 it must move 4.9 MB,
 about 1.5 us at the H100's 3.35 TB/s.
 
-The row and its candidates must fit in shared memory (8 bytes per entry):
-6x6 (A=9036, 72 KB) and 7x7 (A=24843, 194 KB) do; 8x8 (A=65216, 510 KB)
-does not, and the wrapper raises.
+Rows whose row and candidates fit in shared memory (8 bytes an entry:
+6x6, A=9036, 72 KB; 7x7, A=24843, 194 KB) take that kernel.  Wider rows
+(8x8, A=65216, 510 KB) take a second kernel in the same source that
+leaves the row in device memory and copies the candidates to a workspace
+the wrapper allocates (u32[B, A]); the wrapper picks by width.  Bound at
+f32[128, 65216], k=256: 33.7 MB, about 10.0 us at 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 from . import _build
 
 # Largest shared memory a block may use on Hopper (232,448 B), less the
-# kernel's static histogram and scan scratch.
+# kernel's static histogram and scan scratch: rows up to _SMEM_LIMIT / 8
+# entries take the shared-memory kernel.
 _SMEM_LIMIT = 232_448 - 9_216
 
 
@@ -62,19 +66,19 @@ def exact_top_k_unsorted(x: torch.Tensor, k: int):
     b, a = x.shape
     if not 0 < k <= a:
         raise ValueError(f"exact_top_k_unsorted: need 0 < k <= A, got k={k}, A={a}")
-    if 8 * a > _SMEM_LIMIT:
-        raise ValueError(
-            f"exact_top_k_unsorted: a row of A={a} floats and its candidates do "
-            f"not fit in shared memory ({8 * a} > {_SMEM_LIMIT} bytes)"
-        )
     vals = torch.empty((b, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, k), dtype=torch.int32, device=x.device)
     if b:
+        lib = _build.lib("topk")
         with torch.cuda.device(x.device):
-            err = _build.lib("topk").topk_launch(
-                x.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, a, k,
-                torch.cuda.current_stream().cuda_stream,
-            )
+            stream = torch.cuda.current_stream().cuda_stream
+            if 8 * a <= _SMEM_LIMIT:
+                err = lib.topk_launch(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, a, k, stream)
+            else:
+                work = torch.empty((b, a), dtype=torch.int32, device=x.device)
+                err = lib.topk_wide_launch(
+                    x.data_ptr(), vals.data_ptr(), idx.data_ptr(), work.data_ptr(), b, a, k, stream
+                )
         _build.check(err, "topk")
         exact_top_k_unsorted.launches += 1
     return vals, idx

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.bitset import bitset_set
+from .flush import drain_index_pairs
 
 _STEP_RE = re.compile(r"model_(\d+)\.ckpt$")
 HASH_LOG = "hash_log.bin"
@@ -55,9 +56,7 @@ def fresh_indices(idx, fresh) -> np.ndarray:
     ``(idx, fresh)`` come from ``models.agent.hash_indices_fresh``.  This
     bounds ``hash_log.bin`` by the number of distinct bits ever set.
     """
-    idx = torch.as_tensor(idx).cpu().numpy().ravel()
-    fresh = torch.as_tensor(fresh).cpu().numpy().ravel().astype(bool)
-    return np.unique(idx[fresh]).astype("<u4")
+    return drain_index_pairs([(torch.as_tensor(idx), torch.as_tensor(fresh))])
 
 
 def append_hash_indices(directory, idx) -> None:

@@ -341,7 +341,7 @@ def test_actor_drivers_close_the_loop_on_the_cpu(tmp_path):
 def test_actor_drivers_refuse_what_is_not_ported(tmp_path, monkeypatch):
     base = ["--directory", str(tmp_path), "--net", "tiny3", "--device", "cpu", "--max-steps", "1"]
     for main in (selfplay.main, reanalyze.main):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
             main(base + ["--devices", "2"])
         with pytest.raises(NotImplementedError, match="RND"):
             main(base + ["--net", "net4_rnd"])

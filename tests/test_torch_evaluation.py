@@ -294,3 +294,53 @@ def test_build_openings_matches_jax(tmp_path):
     trand = eval_driver.build_openings(torch_engine(4), 8, rng_t, "cpu")
     assert trand.ply.tolist() == np.asarray(jrand.ply).tolist()  # the same 2-3 plies
     assert rng_t.integers(1 << 30) == rng_j.integers(1 << 30)
+
+
+PUZZLE_DB = "examples/puzzles_6x6.db"
+DB_COUNTS = {("tinue", 3): 50, ("tinue", 5): 20, ("tinue", 7): 20, ("tinue", 9): 10,
+             ("avoidance", 2): 41, ("avoidance", 4): 38, ("avoidance", 6): 59}
+
+
+def test_fetch_puzzles_matches_jax_on_the_repo_database():
+    """Every category and depth of the repository's 6x6 puzzle database."""
+    for (category, depth), count in DB_COUNTS.items():
+        sql = puzzle.TINUE_SQL if category == "tinue" else puzzle.AVOIDANCE_SQL
+        rows = puzzle.fetch_puzzles(PUZZLE_DB, sql, 6, depth)
+        assert rows == jax_puzzle.fetch_puzzles(PUZZLE_DB, sql, 6, depth), (category, depth)
+        assert len(rows) == count, (category, depth)
+
+
+def test_puzzle_benchmark_matches_jax_on_a_database_slice(monkeypatch):
+    """``benchmark`` with the dummy evaluator on six rows of tinue-3 and six
+    of avoidance-2 (k=8, budget 24): the attempted, solved and proven counts
+    and the node counts equal JAX's.  The port's root Gumbels are JAX's,
+    rebuilt from the key chain of JAX's driver (one split per category, one
+    per batch)."""
+    from takzero_tpu.search.agents import dummy_evaluator as jax_dummy
+    from takzero_tpu.search.gumbel import make_gumbel_search as jax_gumbel_search
+    from takzero_tpu.search.tree import init_tree as jax_init_tree
+    from takzero_torch.search.agents import dummy_evaluator
+
+    k, budget, children = 8, 24, 256
+    jeng, teng = jax_engine(6, half_komi=4), torch_engine(6, half_komi=4)
+
+    def jax_step(envs, bundle, key):  # the JAX driver's search_step
+        search = jax_gumbel_search(jeng, jax_dummy(jeng), k, budget, max_depth=48)
+        tree = jax_init_tree(jeng, envs, budget + 8, children)
+        return search(tree, key, jnp.zeros(envs.ply.shape[0]))[0]
+
+    jstep = jax.jit(jax_step)
+    tstep = puzzle.make_search_step(teng, NET_PRESETS["net6_simhash"], lambda b, e: dummy_evaluator(teng)(e),
+                                    k, budget)
+    key = jax.random.PRNGKey(jax_puzzle.SEED)
+    for sql, depth, win in ((puzzle.TINUE_SQL, 3, True), (puzzle.AVOIDANCE_SQL, 2, False)):
+        rows = puzzle.fetch_puzzles(PUZZLE_DB, sql, 6, depth)[:6]
+        key, kc = jax.random.split(key)
+        _, kb = jax.random.split(kc)  # benchmark's split for its one batch
+        draws = iter([torch.from_numpy(np.array(jax.random.gumbel(kb, (puzzle.BATCH_SIZE, children))))])
+        monkeypatch.setattr(puzzle, "gumbel_noise", lambda gen, shape: next(draws))
+        want = jax_puzzle.benchmark(jeng, jstep, None, rows, win, 6, kc)
+        got = puzzle.benchmark(teng, tstep, None, rows, win, 6, torch.Generator())
+        assert (got.category, got.attempted, got.solved, got.proven, got.nodes, got.nodes_incomplete) == (
+            want.category, want.attempted, want.solved, want.proven, want.nodes, want.nodes_incomplete)
+        assert got.attempted == 6 and got.nodes > 0

@@ -108,5 +108,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         puzzle.main(["--model", str(tmp_path / "m.ckpt"), "--puzzle-db", str(db), "--net", "tiny3"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_bench.main(["--net", "tiny3"])
+    # One-process training: the co-scheduled driver and tiny_run.
+    from takzero_torch import tiny_run
+    from takzero_torch.drivers import coscheduled
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        coscheduled.main(["--directory", str(tmp_path), "--net", "tiny3", "--max-moves", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tiny_run.main(["--out", str(tmp_path / "tiny_run.json")])
     assert not any(tmp_path.iterdir())
     assert resolve_device("cpu") == torch.device("cpu")

@@ -51,7 +51,7 @@ def _compare(jf, teng, js, ts, where):
         )
 
 
-@pytest.mark.parametrize("n", [3, 4, 5, 6])
+@pytest.mark.parametrize("n", [3, 4, 5, 6, 7, 8])
 def test_random_playouts_match_jax(n):
     batch, plies = 24, 60 if n < 6 else 100
     jeng, teng = jax_engine(n, half_komi=2 * (n % 2)), torch_engine(n, half_komi=2 * (n % 2))
@@ -108,7 +108,7 @@ def test_owner_round_trip_above_32():
     np.testing.assert_array_equal(join_owner(flo, fhi).numpy(), full.numpy())
 
 
-@pytest.mark.parametrize("n", [5, 6])
+@pytest.mark.parametrize("n", [5, 6, 7, 8])
 def test_tall_stack_spreads_match_jax(n):
     jeng, teng = jax_engine(n), torch_engine(n)
     jf = _jax_fns(jeng)
