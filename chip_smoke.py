@@ -72,7 +72,7 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    (16x256 bf16, SimHash over 2^32 bits) in one temporary directory, the
    search cut to batch 128, k=8, budget 24: the learner pre-trains (1,280
    random-game targets, 10 steps) and publishes ``model_latest.ckpt``; the
-   selfplay driver plays until 128 games have finished; the learner takes
+   selfplay driver plays until 64 games have finished; the learner takes
    10 steps on its targets; the selfplay driver plays 2 more moves (its
    poller must reload once, and its seen-set must equal ``bitset_set`` of
    all of ``hash_log.bin``); the reanalyze driver takes 2 steps at batch
@@ -131,7 +131,29 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    evaluation games: the summary parses, games = 16, the final loss is
    finite, launches as the loop implies, in all and in the one iteration
    read from the counters around it (no Elo gate);
-13. a ``kernels`` JSON line: each kernel with what it replaces, its
+13. the novelty variants: (a) ``tiny3_rnd``, ``tiny4`` (LCG hash over
+   2^24 bits), net5 with its core cut to 16x2 and its MLP RND at full
+   width (800-1024-1024-512), and a 16x2 ensemble net of 16 heads, each
+   on the card against the CPU from the same weights in float32 and bf16:
+   the input planes and LCG hash indices bit for bit, ``net_evaluate``'s
+   outputs, two train steps' metrics (``loss_rnd`` included), the RND
+   bounds after a refresh and the seen-sets, and the RND target unchanged
+   bit for bit; (b) phase
+   9's loop at ``net4_rnd`` (16x256 bf16, two 32x4 RND towers), same cuts:
+   every refresh of the learner's bounds finite with min < max, the actor's
+   poller holding the learner's last bounds, ``model_latest.ckpt`` holding
+   the RND keys, ``loss_rnd`` finite, no ``hash_log.bin``, kernel B never
+   launched; (c) ``net4_lcghash`` (LCG hash over 2^32 bits, a 512 MiB
+   seen-set): pre-training, 4 selfplay moves, 4 learner steps, 2 more
+   moves: the hash log holds distinct indices that rebuild the learner's
+   seen-set, the actor's seen-set equals it after its poll, kernel B never
+   launched; (d) kernel A against ``topk_plain`` at net5's 5x5
+   f32[128, 3075] (k=1, 128 and A; timed at k=128 beside ``torch.topk``),
+   then ``net4_ensemble`` and ``net5`` at full width: pre-training (the
+   ensemble learner warns that its heads stay untrained), one selfplay
+   move each with kernel A (budget+1) launches and B none, the variance in
+   [0, 4], and two net5 learner steps;
+14. a ``kernels`` JSON line: each kernel with what it replaces, its
    launches on the move program (``launches``), on the learner
    (``learner_launches``), on the selfplay driver and on reanalyze
    (``selfplay_driver_launches``, ``reanalyze_launches``), on the serve
@@ -145,7 +167,11 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    launches on the 8x8 search, the co-scheduled driver and tiny_run
    (``search_8x8_launches``, ``coscheduled_launches``,
    ``tiny_run_launches``; per move of the co-scheduled driver and per
-   iteration of tiny_run, each read from the counters in this run).
+   iteration of tiny_run, each read from the counters in this run), on
+   the novelty phases (``rnd_loop_selfplay_driver_launches``,
+   ``rnd_loop_reanalyze_launches``, ``lcghash_launches_per_move``,
+   ``ensemble_launches_per_move``, ``net5_launches_per_move``), and
+   kernel A at 5x5 (``at_5x5``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
@@ -981,13 +1007,23 @@ def _zero_launch_counts() -> None:
     simhash.simhash_pack.launches = 0
 
 
-def _expect_launches(what: str, per: int, count: int) -> dict:
-    """Read the counters; each kernel must have launched ``per * count`` times."""
+def _expect_launches(what: str, per: int, count: int, b_per: int | None = None) -> dict:
+    """Read the counters; kernel A must have launched ``per * count`` times
+    and kernel B ``b_per * count`` (``b_per`` defaults to ``per``; 0 for a
+    net without SimHash)."""
     got = _launch_counts()
+    want = {"exact_top_k_unsorted": per, "simhash_pack": per if b_per is None else b_per}
     for name, n in got.items():
-        if n != per * count:
-            raise AssertionError(f"{what}: {name} launched {n} times, expected {per} x {count}")
+        if n != want[name] * count:
+            raise AssertionError(f"{what}: {name} launched {n} times, expected {want[name]} x {count}")
     return got
+
+
+def net_label(cfg) -> str:
+    novelty = {"simhash": f"SimHash 2^{cfg.hash_bits}", "lcghash": f"LCG hash 2^{cfg.hash_bits}",
+               "rnd": "MLP RND 800-1024-1024-512" if cfg.rnd_mlp else f"RND towers {cfg.rnd_blocks}x{cfg.rnd_filters}",
+               "ensemble": f"{cfg.ensemble_size} ensemble heads", "none": "no novelty"}[cfg.novelty]
+    return f"{cfg.blocks}x{cfg.filters} {str(cfg.compute_dtype).split('.')[-1]}, {novelty}"
 
 
 def check_target_lines(eng, text: str, what: str) -> int:
@@ -1043,8 +1079,14 @@ def check_replays(eng, lines: list, what: str) -> int:
 
 
 def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: int = 8, budget: int = 24,
-                   games: int = 128) -> dict:
-    """The actor-learner loop through the three drivers in one directory."""
+                   games: int = 64) -> dict:
+    """The actor-learner loop through the three drivers in one directory.
+
+    Any preset: kernel B must launch (budget+1) per search on a SimHash net
+    and never on another; a hash net's actors must hold the seen-set of the
+    whole hash log, other nets must write none; an RND net's learner must
+    refresh its bounds (min < max, finite) at the start of each run, and
+    the actor's poller must load them."""
     import json
     import math
     import tempfile
@@ -1066,39 +1108,67 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
     cfg = NET_PRESETS[net]
     eng = engine(cfg.n, half_komi=cfg.half_komi)
     per_move = budget + 1
+    b_per = per_move if cfg.novelty == "simhash" else 0
+    hashed = cfg.novelty in ("simhash", "lcghash")
+    b_in_phase = 0  # kernel B's launches over the whole phase
+
+    def zero_counts():
+        nonlocal b_in_phase
+        b_in_phase += _launch_counts()["simhash_pack"]
+        _zero_launch_counts()
+
+    _zero_launch_counts()  # earlier phases' launches are not this phase's
     with tempfile.TemporaryDirectory(prefix="takzero_loop_") as d:
         common = ["--directory", d, "--net", net, "--device", str(dev)]
         search = ["--batch", str(batch), "--sampled", str(sampled), "--budget", str(budget)]
         learner = common + ["--batch-size", str(batch), "--no-wait"]
         torch.cuda.reset_peak_memory_stats(dev)
         # 1. Pre-training publishes model_latest.ckpt and hash_log.bin.
-        learn.main(learner + ["--seed", "0", "--pretrain-targets", str(10 * batch), "--pretrain-steps", "10",
-                              "--max-steps", "0"])
+        pre = learn.main(learner + ["--seed", "0", "--pretrain-targets", str(10 * batch), "--pretrain-steps",
+                                    "10", "--max-steps", "0"])
         # 2. Selfplay until `games` games have finished.
-        _zero_launch_counts()
+        zero_counts()
         sp = selfplay.main(common + search + ["--seed", "1", "--max-games", str(games)])
         del sp["agent"]
-        sp_launches = _expect_launches("selfplay driver", per_move, sp["moves"])
+        sp_launches = _expect_launches("selfplay driver", per_move, sp["moves"], b_per)
         # 3. Ten learner steps on the selfplay targets.
         lr = learn.main(learner + ["--seed", "2", "--pretrain-steps", "0", "--max-steps", "10"])
         if lr["steps"] != 10:
             raise AssertionError(f"the learner took {lr['steps']} steps on selfplay targets, expected 10")
         # 4. Two more moves: one reload, and the seen-set of the whole log.
-        _zero_launch_counts()
+        zero_counts()
         sp2 = selfplay.main(common + search + ["--seed", "3", "--max-steps", "2"])
-        _expect_launches("selfplay driver, 2 moves", per_move, 2)
+        _expect_launches("selfplay driver, 2 moves", per_move, 2, b_per)
         if sp2["reloads"] != 1:
             raise AssertionError(f"the selfplay poller reloaded {sp2['reloads']} times, expected 1")
-        idx, _ = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)
-        seen = bitset_set(bitset_init(cfg.hash_bits, dev), torch.from_numpy(idx.astype(np.int64)).to(dev))
-        if not torch.equal(seen, sp2["agent"]["hash_bits"]):
-            raise AssertionError("the selfplay actor's seen-set differs from bitset_set of hash_log.bin")
+        if hashed:
+            idx, _ = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)
+            seen = bitset_set(bitset_init(cfg.hash_bits, dev), torch.from_numpy(idx.astype(np.int64)).to(dev))
+            if not torch.equal(seen, sp2["agent"]["hash_bits"]):
+                raise AssertionError("the selfplay actor's seen-set differs from bitset_set of hash_log.bin")
+            del seen
+        elif Path(d, ckpt.HASH_LOG).exists():
+            raise AssertionError(f"{net}: hash_log.bin written for a net without a hash")
+        rnd = None
+        if cfg.novelty == "rnd":
+            latest = ckpt.read_checkpoint(ckpt.latest_path(d))
+            if not {"rnd", "rnd_min", "rnd_max"} <= set(latest):
+                raise AssertionError(f"model_latest.ckpt lacks the RND keys: {sorted(latest)}")
+            refreshes = pre["rnd_refreshes"] + lr["rnd_refreshes"]
+            if len(refreshes) != 2 or not all(math.isfinite(lo) and math.isfinite(hi) and lo < hi
+                                              for _, lo, hi in refreshes):
+                raise AssertionError(f"RND refreshes {refreshes}: one per learner run, min < max, finite")
+            bounds = [float(sp2["agent"][k]) for k in ("rnd_min", "rnd_max")]
+            if bounds != list(refreshes[-1][1:]) or bounds != [float(latest[k]) for k in ("rnd_min", "rnd_max")]:
+                raise AssertionError(f"the actor holds RND bounds {bounds}, the learner refreshed {refreshes[-1]}")
+            rnd = {"refreshes": refreshes, "actor_bounds": bounds}
+            del latest
         sp2_replays = sp2["replays"]
-        del sp2, seen
+        del sp2
         # 5. Two reanalyze steps on the exploded replays.
-        _zero_launch_counts()
+        zero_counts()
         re = reanalyze.main(common + search + ["--seed", "4", "--min-positions", str(batch), "--max-steps", "2"])
-        re_launches = _expect_launches("reanalyze", per_move, re["steps"])
+        re_launches = _expect_launches("reanalyze", per_move, re["steps"], b_per)
         if re["steps"] != 2 or re["targets"] != 2 * batch:
             raise AssertionError(f"reanalyze: {re['steps']} steps and {re['targets']} targets")
         # 6. One train step on reanalyze targets (the learner mixes them in
@@ -1117,16 +1187,19 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         replays = open(f"{d}/{co.REPLAYS}", encoding="utf-8").read().splitlines()
         n_replays = check_replays(eng, replays, "replays.txt")
         rows = [json.loads(x) for x in open(f"{d}/metrics.jsonl", encoding="utf-8").read().splitlines()]
-        losses = [r[k] for r in rows for k in ("loss", "loss_policy", "loss_value", "loss_ube")] + list(m.values())
+        keys = ("loss", "loss_policy", "loss_value", "loss_ube") + (("loss_rnd",) if cfg.novelty == "rnd" else ())
+        losses = [r[k] for r in rows for k in keys] + list(m.values())
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError("non-finite loss on the loop")
+        zero_counts()
+        if cfg.novelty != "simhash" and b_in_phase:
+            raise AssertionError(f"{net}: kernel B launched {b_in_phase} times in the phase, expected 0")
         if n_replays != sp["replays"] + sp2_replays or sp["replays"] < games:
             raise AssertionError(f"{n_replays} replays in the file, the drivers finished "
                                  f"{sp['replays']} + {sp2_replays} games (at least {games} expected)")
 
     out = {
-        "phase": "actor-learner loop", "card": card_line(),
-        "net": f"{net} ({cfg.blocks}x{cfg.filters} {str(cfg.compute_dtype).split('.')[-1]}, SimHash 2^{cfg.hash_bits})",
+        "phase": "actor-learner loop", "card": card_line(), "net": f"{net} ({net_label(cfg)})",
         "cuts": {"batch": batch, "sampled": sampled, "budget": budget, "pretrain_targets": 10 * batch,
                  "pretrain_steps": 10, "learner_steps": 10, "reanalyze_steps": 2},
         "selfplay": {"moves": sp["moves"], "games": sp["replays"], "targets": sp["targets"],
@@ -1142,6 +1215,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         "reanalyze_train_step": m, "lines_checked": {"selfplay": sp_lines, "reanalyze": re_lines,
                                                      "replays": n_replays},
         "launches": {"selfplay_driver": sp_launches, "reanalyze": re_launches, "per_move_or_step": per_move},
+        "kernel_b_launches_in_phase": b_in_phase, "rnd": rnd,
         "peak_memory_gb": peak_gb, "seconds": time.perf_counter() - t_phase,
     }
     log(out)
@@ -1680,6 +1754,284 @@ def run_tiny_run(dev, iters: int = 1, eval_games: int = 8) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the novelty variants (RND tower and MLP, LCG hash, ensemble).
+# ---------------------------------------------------------------------------
+
+
+def check_novelty_small_reference(dev) -> dict:
+    """13a: each small configuration on the card against the CPU, from the
+    same weights (``new_agent`` draws on the CPU), in float32 and bf16:
+    LCG hash indices bit for bit, ``net_evaluate``'s outputs, two train
+    steps (every metric, ``loss_rnd`` included), the RND bounds after a
+    refresh from the same reference batches, the seen-sets; the RND
+    target's weights and statistics unchanged on the card."""
+    import dataclasses
+
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.eee.harness import random_plane_batch
+    from takzero_torch.models.agent import lcghash_indices, make_net_evaluate, new_agent, rnd_update_normalization
+    from takzero_torch.models.network import NetConfig
+    from takzero_torch.ops.repr import state_to_planes
+    from takzero_torch.tak.engine import engine
+
+    configs = {
+        "tiny3_rnd": NET_PRESETS["tiny3_rnd"],
+        "tiny4": NET_PRESETS["tiny4"],
+        "net5_16x2": dataclasses.replace(NET_PRESETS["net5"], filters=16, blocks=2),  # the MLP at full width
+        "ensemble_16x2": NetConfig(n=4, half_komi=4, filters=16, blocks=2, novelty="ensemble"),
+    }
+    report = {"phase": "novelty small reference", "card": card_line()}
+    # Tolerances of the CPU tests and of phase 7: float32 1e-4 (summation
+    # order; TF32 off); bf16 5e-2 on the evaluator's outputs and the train
+    # steps' metrics, with every policy argmax but 5% equal.  In bf16 a
+    # float32 sum within rounding of a bf16 boundary rounds the other way on
+    # the other side, one bf16 step: 0.0156 at a logit of 2-4 (found: 2 of
+    # 60,416 tiny4 logits off by 0.0126) and 0.03125 at 4-8.
+    for name, base in configs.items():
+        for dtype, tol, train_tol in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 5e-2, 5e-2)):
+            cfg = dataclasses.replace(base, compute_dtype=dtype)
+            where = f"{name} {str(dtype).split('.')[-1]}"
+            eng = engine(cfg.n, half_komi=cfg.half_komi)
+            envs = random_positions(eng, 64, 10, torch.Generator().manual_seed(4), "cpu")
+            planes = state_to_planes(eng, envs)
+            cpu, card = new_agent(cfg, seed=2, device="cpu"), new_agent(cfg, seed=2, device=dev)
+            row = {}
+            planes_card = state_to_planes(eng, envs.map(lambda t: t.to(dev)))
+            if not torch.equal(planes_card.cpu().view(torch.int32), planes.view(torch.int32)):
+                raise AssertionError(f"{where}: input planes differ between card and CPU")
+            if cfg.novelty == "lcghash":
+                want = lcghash_indices(cfg, cpu["hash_scale"], planes)
+                got = lcghash_indices(cfg, card["hash_scale"], planes_card)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"{where}: LCG hash indices differ between card and CPU")
+                row["lcghash_indices"] = "card == cpu, planes bit for bit"
+            if cfg.novelty == "rnd":
+                refs = [random_plane_batch(eng, torch.Generator().manual_seed(seed), ply, 32)
+                        for seed, ply in ((9, 4), (10, 20))]
+                rnd_update_normalization(cfg, cpu, *refs)
+                rnd_update_normalization(cfg, card, *(r.to(dev) for r in refs))
+            out_cpu = make_net_evaluate(cfg, eng, device="cpu")(cpu, envs)
+            out_card = make_net_evaluate(cfg, eng, device=dev)(card, envs.map(lambda t: t.to(dev)))
+            for g, w, what in zip(out_card, out_cpu, ("policy", "value", "variance")):
+                torch.testing.assert_close(g.cpu(), w, rtol=tol, atol=tol, msg=lambda m: f"{where} {what}: {m}")
+            agree = float((out_card[0].cpu().argmax(-1) == out_cpu[0].argmax(-1)).float().mean())
+            if agree < 0.95:
+                raise AssertionError(f"{where}: policy argmax agrees on {agree:.3f} of positions")
+            var = out_card[2]
+            if not bool(((var >= 0) & (var <= 4)).all()):
+                raise AssertionError(f"{where}: variance outside [0, 4]")
+            row["evaluate_max_abs_diff"] = max(float((g.cpu() - w).abs().max()) for g, w in zip(out_card, out_cpu))
+            row["policy_argmax_agreement"] = agree
+            (a_cpu, m_cpu), (a_card, m_card) = _train_pair(cfg, dev)
+            worst = 0.0
+            for mc, mg in zip(m_cpu, m_card):
+                if set(mc) != set(mg) or (cfg.novelty == "rnd") != ("loss_rnd" in mc):
+                    raise AssertionError(f"{where}: metrics {sorted(mg)} on the card, {sorted(mc)} on the CPU")
+                for k in mc:
+                    worst = max(worst, abs(mc[k] - mg[k]))
+                    if not abs(mc[k] - mg[k]) <= train_tol * max(1.0, abs(mc[k])):
+                        raise AssertionError(f"{where}: {k} {mg[k]} on the card, {mc[k]} on the CPU")
+            row["train_metrics"] = m_card
+            row["train_max_metric_diff"] = worst
+            if "hash_bits" in a_cpu and not torch.equal(a_card["hash_bits"].cpu(), a_cpu["hash_bits"]):
+                raise AssertionError(f"{where}: seen-sets differ between card and CPU after the train steps")
+            if cfg.novelty == "rnd":
+                rnd_update_normalization(cfg, a_cpu, *refs)
+                rnd_update_normalization(cfg, a_card, *(r.to(dev) for r in refs))
+                bounds = {k: (float(a_card[k]), float(a_cpu[k])) for k in ("rnd_min", "rnd_max")}
+                for k, (g, w) in bounds.items():
+                    if not abs(g - w) <= train_tol * max(1.0, abs(w)):
+                        raise AssertionError(f"{where}: {k} {g} on the card, {w} on the CPU after the steps")
+                fresh = new_agent(cfg, seed=2, device=dev)["rnd"].target.state_dict()
+                for k, v in a_card["rnd"].target.state_dict().items():
+                    if not torch.equal(v, fresh[k]):
+                        raise AssertionError(f"{where}: the RND target's {k} changed in training")
+                row["rnd_bounds_card_cpu"] = bounds
+                row["rnd_target"] = "unchanged, bit for bit"
+            report[where] = row
+    log(report)
+    return report
+
+
+def run_lcghash_drivers(dev, batch: int = 128, sampled: int = 8, budget: int = 24) -> dict:
+    """13c: ``drivers/learn.py`` and ``drivers/selfplay.py`` at net4_lcghash
+    (16x256 bf16, LCG hash over a 2^32 seen-set): pre-training (1,280
+    targets, 10 steps), 4 selfplay moves, 4 learner steps on random-game
+    targets (a step checkpoint at 14), 2 more moves.  The hash log must
+    hold each index once and exactly the learner's seen-set, the actor's
+    seen-set must equal the learner's after its poll, kernel A must launch
+    (budget+1) per move and kernel B never."""
+    import numpy as np
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.drivers import learn, selfplay
+    from takzero_torch.ops.bitset import bitset_init, bitset_set
+    from takzero_torch.parallel import coordinator as co
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.train.data import random_pretraining_targets
+    from takzero_torch.utils import ckpt
+
+    t_phase = time.perf_counter()
+    net = "net4_lcghash"
+    cfg = NET_PRESETS[net]
+    per = budget + 1
+    with tempfile.TemporaryDirectory(prefix="takzero_lcg_") as d:
+        common = ["--directory", d, "--net", net, "--device", str(dev)]
+        search = ["--batch", str(batch), "--sampled", str(sampled), "--budget", str(budget)]
+        learner = common + ["--batch-size", str(batch), "--no-wait", "--steps-per-checkpoint", "14"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launch_counts()
+        learn.main(learner + ["--seed", "0", "--pretrain-targets", str(10 * batch), "--pretrain-steps", "10",
+                              "--max-steps", "0"])
+        _expect_launches("net4_lcghash learner pre-training", 0, 1)
+        log_after_pre = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)[0].size
+        sp = selfplay.main(common + search + ["--seed", "1", "--max-steps", "4"])
+        sp_launches = _expect_launches("net4_lcghash selfplay", per, 4, 0)
+        eng = engine(cfg.n, half_komi=cfg.half_komi)
+        lines = [t.to_line() for t in random_pretraining_targets(eng, 4 * batch, np.random.default_rng(3), device=dev)]
+        Path(d, co.TARGETS_SELFPLAY).write_text("\n".join(lines) + "\n", encoding="utf-8")
+        _zero_launch_counts()
+        lr = learn.main(learner + ["--seed", "2", "--pretrain-steps", "0", "--max-steps", "4"])
+        _expect_launches("net4_lcghash learner", 0, 1)
+        sp2 = selfplay.main(common + search + ["--seed", "3", "--max-steps", "2"])
+        _expect_launches("net4_lcghash selfplay, 2 moves", per, 2, 0)
+        step14 = ckpt.read_checkpoint(f"{d}/model_0000014.ckpt")["hash_bits"].to(dev)
+        idx, _ = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)
+        # Distinct indices that rebuild the learner's seen-set: the log
+        # holds each set bit once and nothing else.
+        if np.unique(idx).size != idx.size:
+            raise AssertionError(f"hash_log.bin holds {idx.size - np.unique(idx).size} repeated indices")
+        seen = bitset_set(bitset_init(cfg.hash_bits, dev), torch.from_numpy(idx.astype(np.int64)).to(dev))
+        if not torch.equal(seen, step14):
+            raise AssertionError("bitset_set of hash_log.bin differs from the learner's seen-set at step 14")
+        del seen
+        if sp2["reloads"] != 1 or not torch.equal(sp2["agent"]["hash_bits"], step14):
+            raise AssertionError("the actor's seen-set after its poll differs from the learner's at step 14")
+        if lr["steps"] != 4 or idx.size <= log_after_pre:
+            raise AssertionError(f"learner: {lr['steps']} steps, the log grew {log_after_pre} -> {idx.size}")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        del step14, sp2
+    torch.cuda.empty_cache()
+    out = {"phase": "novelty: LCG hash drivers", "card": card_line(), "net": f"{net} ({net_label(cfg)})",
+           "cuts": {"batch": batch, "sampled": sampled, "budget": budget, "pretrain_steps": 10,
+                    "learner_steps": 4, "selfplay_moves": 6},
+           "selfplay_moves_per_s": sp["moves"] / sp["seconds"], "learner_steps_per_s": lr["steps"] / lr["seconds"],
+           "hash_log_indices": {"after_pretraining": log_after_pre, "final": int(idx.size)},
+           "launches_per_move": {k: v // 4 for k, v in sp_launches.items()},
+           "peak_memory_gb": peak_gb, "seconds": time.perf_counter() - t_phase}
+    log(out)
+    return out
+
+
+def check_topk_5x5(gen, dev) -> dict:
+    """Kernel A at net5's 5x5 shape, f32[128, 3075]: masked logits of random
+    5x5 positions and the adversarial rows with k=1, 128 and A, values bit
+    for bit and indices exactly; timed at k=128."""
+    import torch
+
+    from takzero_torch.ops import topk
+    from takzero_torch.tak.engine import engine
+
+    eng = engine(5, half_komi=4)
+    legal = eng.legal_mask(random_positions(eng, 128, 30, gen, dev))
+    b, a = legal.shape
+    rows = torch.where(legal, torch.randn(b, a, generator=gen, device=dev), NEG).contiguous()
+    hard = adversarial_rows(a, gen, dev)
+    for k in (1, 128, a):
+        expect_topk_equal(rows, k, f"5x5 masked logits k={k}")
+        expect_topk_equal(hard, k, f"5x5 adversarial rows k={k}")
+    k = 128
+    out = dict(shape=[b, a], k=k, max_abs_err=0.0,
+               kernel_ms=device_ms(lambda: topk.exact_top_k_unsorted(rows, k))[0],
+               call_ms=call_ms(lambda: topk.exact_top_k_unsorted(rows, k)),
+               plain_ms=device_ms(lambda: topk.topk_plain(rows, k))[0],
+               library_ms=device_ms(lambda: torch.topk(rows, k, sorted=False))[0])
+    out["bound_ms"], out["bound_by"] = bound_ms(b * a * 4 + b * k * 8, b * a)
+    log({"phase": "kernel A at 5x5 (net5)", "card": card_line(), **out})
+    return out
+
+
+def run_ensemble_and_net5(dev, batch: int = 128, sampled: int = 8, budget: int = 24) -> dict:
+    """13d: net4_ensemble and net5 at full width through the drivers: the
+    learner's pre-training (2 steps on 256 targets; the ensemble learner
+    must warn that it leaves its heads untrained), one selfplay move each
+    (kernel A (budget+1) launches, kernel B none), the variance in [0, 4]
+    on random positions, and for net5 two learner steps on random-game
+    targets (finite metrics, ``loss_rnd`` included)."""
+    import logging
+    import math
+
+    import numpy as np
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.drivers import learn, selfplay
+    from takzero_torch.models.agent import make_net_evaluate
+    from takzero_torch.parallel import coordinator as co
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.train.data import random_pretraining_targets
+
+    per = budget + 1
+    res = {}
+    for net in ("net4_ensemble", "net5"):
+        t0 = time.perf_counter()
+        cfg = NET_PRESETS[net]
+        warnings = []
+        handler = logging.Handler(logging.WARNING)
+        handler.emit = lambda record: warnings.append(record.getMessage())
+        logging.getLogger("learn").addHandler(handler)
+        with tempfile.TemporaryDirectory(prefix="takzero_nov_") as d:
+            common = ["--directory", d, "--net", net, "--device", str(dev)]
+            torch.cuda.reset_peak_memory_stats(dev)
+            _zero_launch_counts()
+            try:
+                lr = learn.main(common + ["--batch-size", str(batch), "--no-wait", "--seed", "0",
+                                          "--pretrain-targets", str(2 * batch), "--pretrain-steps", "2",
+                                          "--max-steps", "0"])
+            finally:
+                logging.getLogger("learn").removeHandler(handler)
+            _expect_launches(f"{net} learner", 0, 1)
+            warned = any("NOT trained" in w for w in warnings)
+            if warned != (cfg.novelty == "ensemble"):
+                raise AssertionError(f"{net}: ensemble warning {'given' if warned else 'missing'}: {warnings}")
+            sp = selfplay.main(common + ["--batch", str(batch), "--sampled", str(sampled), "--budget", str(budget),
+                                         "--seed", "1", "--max-steps", "1"])
+            launches = _expect_launches(f"{net} selfplay move", per, 1, 0)
+            if sp["reloads"] != 1:
+                raise AssertionError(f"{net}: the selfplay poller reloaded {sp['reloads']} times, expected 1")
+            eng = engine(cfg.n, half_komi=cfg.half_komi)
+            envs = random_positions(eng, batch, 12, torch.Generator(device=dev).manual_seed(5), dev)
+            _, value, var = make_net_evaluate(cfg, eng, device=dev)(sp["agent"], envs)
+            steps = None
+            if net == "net5":  # two learner steps on random-game targets
+                lines = [t.to_line() for t in random_pretraining_targets(eng, 2 * batch, np.random.default_rng(3),
+                                                                          device=dev)]
+                Path(d, co.TARGETS_SELFPLAY).write_text("\n".join(lines) + "\n", encoding="utf-8")
+                _zero_launch_counts()
+                lr = learn.main(common + ["--batch-size", str(batch), "--no-wait", "--seed", "2",
+                                          "--pretrain-steps", "0", "--max-steps", "2"])
+                _expect_launches("net5 learner", 0, 1)
+                rows = [json.loads(x) for x in Path(d, "metrics.jsonl").read_text(encoding="utf-8").splitlines()]
+                if lr["steps"] != 2 or not all(math.isfinite(r[k]) for r in rows for k in r if k != "step"):
+                    raise AssertionError(f"net5 learner: {lr['steps']} steps, metrics {rows}")
+                steps = {"steps": 2, "steps_per_s": lr["steps"] / lr["seconds"], "loss_rnd": rows[-1]["loss_rnd"]}
+            if not bool(((var >= 0) & (var <= 4)).all() & torch.isfinite(value).all()):
+                raise AssertionError(f"{net}: variance outside [0, 4] or non-finite value")
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            del sp["agent"]
+        res[net] = {"net": f"{net} ({net_label(cfg)})", "ensemble_warning": warned,
+                    "learner_steps": steps, "moves_per_s": 1 / sp["seconds"], "launches_per_move": launches,
+                    "variance_range": [float(var.min()), float(var.max())], "peak_memory_gb": peak_gb,
+                    "seconds": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    log({"phase": "novelty: ensemble and net5 drivers", "card": card_line(), **res})
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1726,6 +2078,13 @@ def main() -> int:
     serve = run_serve_path(dev, gen)
     cosched = run_coscheduled(dev)
     tiny = run_tiny_run(dev)
+    t13 = time.perf_counter()
+    check_novelty_small_reference(dev)
+    rnd_loop = run_actor_loop(dev, net="net4_rnd")  # 13b: phase 9's loop and cuts
+    lcg = run_lcghash_drivers(dev)
+    topk_5x5 = check_topk_5x5(gen, dev)
+    ens_net5 = run_ensemble_and_net5(dev)
+    log({"phase": "novelty variants done", "seconds": time.perf_counter() - t13})
 
     kernels = []
     for name, out, source, replaces in (
@@ -1753,7 +2112,14 @@ def main() -> int:
             "coscheduled_launches_per_move": cosched["launches_per_move"][name],
             "tiny_run_launches": tiny["launches"][name],
             "tiny_run_launches_per_iteration": tiny["launches_per_iteration"][name],
+            "rnd_loop_selfplay_driver_launches": rnd_loop["launches"]["selfplay_driver"][name],
+            "rnd_loop_reanalyze_launches": rnd_loop["launches"]["reanalyze"][name],
+            "lcghash_launches_per_move": lcg["launches_per_move"][name],
+            "ensemble_launches_per_move": ens_net5["net4_ensemble"]["launches_per_move"][name],
+            "net5_launches_per_move": ens_net5["net5"]["launches_per_move"][name],
         })
+    kernels[0]["at_5x5"] = {k: topk_5x5[k] for k in ("shape", "k", "kernel_ms", "call_ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "bound_by")}
     kernels[0]["at_8x8"] = {k: topk_8x8[k] for k in ("shape", "k", "kernel_ms", "call_ms", "plain_ms", "library_ms",
                                                      "bound_ms", "bound_by", "adversarial_rows_kernel_ms")}
     log({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -1,8 +1,6 @@
-"""Preset configurations, as in ``takzero_tpu/config.py``.
-
-Only the presets whose novelty variant the port has (``simhash``,
-``none``) are listed; the others come with later slices.
-"""
+"""Preset configurations, as in ``takzero_tpu/config.py``: the
+reference's network variants (takzero/src/network/*.rs) and the small
+configurations of the tests, each taken by every driver's ``--net``."""
 
 from __future__ import annotations
 
@@ -12,16 +10,25 @@ from .models.network import NetConfig
 from .selfplay import SelfplayConfig
 
 NET_PRESETS: dict[str, NetConfig] = {
+    # net4_rnd.rs: 4x4, 16x256 core, conv-tower RND
+    "net4_rnd": NetConfig(n=4, half_komi=4, filters=256, blocks=16, novelty="rnd"),
+    # net5.rs: 5x5, 20 residual blocks, MLP RND
+    "net5": NetConfig(n=5, half_komi=4, filters=256, blocks=20, novelty="rnd", rnd_mlp=True),
+    # net4_simhash.rs / net6_simhash.rs: SimHash novelty over a 2^32 bitset
     "net4_simhash": NetConfig(n=4, half_komi=4, novelty="simhash", hash_bits=32),
     "net6_simhash": NetConfig(n=6, half_komi=4, novelty="simhash", hash_bits=32),
+    # net4_lcghash.rs: LCG-hash novelty
+    "net4_lcghash": NetConfig(n=4, half_komi=4, novelty="lcghash", hash_bits=32),
+    # net4_ensemble.rs: 16 extra value heads
+    "net4_ensemble": NetConfig(n=4, half_komi=4, novelty="ensemble"),
+    # a plain net (no novelty)
     "net4_plain": NetConfig(n=4, half_komi=4, novelty="none"),
+    # small test configurations
     "tiny3": NetConfig(n=3, half_komi=0, filters=16, blocks=2, novelty="simhash", hash_bits=12),
+    "tiny3_rnd": NetConfig(n=3, half_komi=0, filters=16, blocks=2, novelty="rnd", rnd_filters=8, rnd_blocks=1),
+    # 4x4 at the board and komi of net4_*, with a small tower
+    "tiny4": NetConfig(n=4, half_komi=4, filters=32, blocks=4, novelty="lcghash", hash_bits=24),
 }
-
-
-# The JAX package's presets whose novelty variant (rnd, lcghash, ensemble)
-# the port does not have yet.
-NOT_PORTED_PRESETS = ("net4_rnd", "net5", "net4_lcghash", "net4_ensemble", "tiny3_rnd", "tiny4")
 
 
 def selfplay_preset(net: str, **overrides) -> SelfplayConfig:

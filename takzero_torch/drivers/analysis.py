@@ -18,7 +18,7 @@ import sys
 
 import torch
 
-from ..config import NET_PRESETS, NOT_PORTED_PRESETS
+from ..config import NET_PRESETS
 from ..device import resolve_device
 from ..models.agent import make_net_evaluate, new_agent
 from ..search import eval as ev
@@ -103,7 +103,7 @@ def fresh_tree(cfg, eng, state):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--net", default="net6_simhash", choices=[*NET_PRESETS, *NOT_PORTED_PRESETS])
+    parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--model", default=None)
     parser.add_argument("--tps", default=None)
     parser.add_argument("--example", action="store_true")

@@ -22,6 +22,8 @@ selfplay move; after ``--steps-before-reanalyze`` optimizer steps
 (learn/src/main.rs:54-58) train batches are the reference's 64+64
 selfplay+reanalyze mix.  ``--pretrain-steps`` runs the learner's
 random-game pre-training (learn/src/main.rs:139-171) before the loop.
+As in the JAX driver, an RND net's normalization bounds are never
+refreshed here (they stay at 0 and 1; ``drivers/learn.py`` refreshes them).
 
 Usage:
     python -m takzero_torch.drivers.coscheduled --directory DIR
@@ -40,11 +42,11 @@ import time
 import numpy as np
 import torch
 
-from ..config import NET_PRESETS, NOT_PORTED_PRESETS, LearnConfig, ReanalyzeConfig, selfplay_preset
+from ..config import NET_PRESETS, LearnConfig, ReanalyzeConfig, selfplay_preset
 from ..data.buffer import PositionBuffer, TargetBuffer
 from ..data.native_loader import make_batch_native
 from ..device import resolve_device
-from ..models.agent import hash_indices_fresh, make_net_evaluate, new_agent
+from ..models.agent import HASHED, hash_indices_fresh, make_net_evaluate, new_agent
 from ..parallel import coordinator as co
 from ..reanalyze import make_reanalyze_step
 from ..selfplay import SelfplayEngine, gumbel_noise, make_draws
@@ -91,7 +93,7 @@ def main(argv=None, draws=None) -> dict:
     (steps with a non-finite metric) and ``agent`` (the bundle)."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--directory", required=True)
-    parser.add_argument("--net", default="net6_simhash", choices=[*NET_PRESETS, *NOT_PORTED_PRESETS])
+    parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--devices", type=int, default=None, help="not ported")
     parser.add_argument("--batch", type=int, default=None)
@@ -151,7 +153,7 @@ def main(argv=None, draws=None) -> dict:
     sp = SelfplayEngine(eng, sp_cfg, evaluator, device=dev)
     sp.reset(draws.opening(sp_cfg.batch, sp_cfg.max_children))
     train_step = make_train_step(net_cfg)
-    hash_logged = net_cfg.novelty == "simhash"
+    hash_logged = net_cfg.novelty in HASHED
 
     bundle = new_agent(net_cfg, seed=args.seed, device=dev)
     bundle, steps = ckpt.resume_with_hash_log(args.directory, bundle, log, reconcile=hash_logged)

@@ -26,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import NET_PRESETS, NOT_PORTED_PRESETS
+from ..config import NET_PRESETS
 from ..device import resolve_device
 from ..evaluation import make_compete
 from ..models.agent import make_net_evaluate, new_agent
@@ -68,7 +68,7 @@ def main(argv=None) -> list:
     match played."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model-path", required=True)
-    parser.add_argument("--net", default="net6_simhash", choices=[*NET_PRESETS, *NOT_PORTED_PRESETS])
+    parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--opening-book", default=None)
     parser.add_argument("--step", type=int, default=1, help="take every k-th ckpt")
     parser.add_argument("--games", type=int, default=64)

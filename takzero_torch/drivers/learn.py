@@ -8,8 +8,11 @@ tail the two target files, publish the buffer lengths, draw a batch
 optimizer step, save ``model_latest.ckpt`` every 100 steps and an
 immutable checkpoint every 50000.  Metrics go to ``metrics.jsonl`` one
 chunk late, so the host reads the device only after it queued the next
-chunk; the bits each batch newly sets in the SimHash seen-set go to
-``hash_log.bin``.
+chunk; the bits each batch newly sets in the hash seen-set (SimHash, LCG
+hash) go to ``hash_log.bin``.  RND nets refresh their normalization bounds
+from two fixed reference batches of random games (ply 8 and ply 60, 64
+positions each) once before the loop and after every chunk that ends on
+a multiple of 100 steps (learn/src/rnd_normalization.rs:48-77).
 
 Usage:
     python -m takzero_torch.drivers.learn --directory DIR [--net ...]
@@ -29,11 +32,12 @@ import time
 import numpy as np
 import torch
 
-from ..config import NET_PRESETS, NOT_PORTED_PRESETS, LearnConfig
+from ..config import NET_PRESETS, LearnConfig
 from ..data.buffer import TargetBuffer
 from ..data.native_loader import make_batch_native, valid_target_lines
 from ..device import resolve_device
-from ..models.agent import hash_indices_fresh, new_agent
+from ..eee.harness import random_plane_batch
+from ..models.agent import HASHED, hash_indices_fresh, new_agent, rnd_update_normalization
 from ..parallel import coordinator as co
 from ..tak.engine import engine
 from ..train.data import random_pretraining_targets
@@ -69,7 +73,7 @@ def pretrain(directory, eng, net_cfg, cfg, bundle: dict, opt, train_step, rng, d
     ``cfg.initial_random_targets`` random-game targets to
     ``targets-initial.txt`` and take up to ``cfg.pre_training_steps`` steps
     on them without UBE.  Returns ``(steps, pairs)``: the steps taken and,
-    for SimHash nets, the device ``(indices, fresh)`` pair of each step.
+    for hash nets, the device ``(indices, fresh)`` pair of each step.
     The caller logs the pairs and saves the step checkpoint, each driver in
     its own order."""
     log.info("pre-training on %d random targets", cfg.initial_random_targets)
@@ -82,7 +86,7 @@ def pretrain(directory, eng, net_cfg, cfg, bundle: dict, opt, train_step, rng, d
         if len(chunk) < cfg.batch_size:
             break
         batch = make_batch_native(eng, "".join(t.to_line() + "\n" for t in chunk), rng, device=dev)
-        if net_cfg.novelty == "simhash":
+        if net_cfg.novelty in HASHED:
             pairs.append(hash_indices_fresh(net_cfg, bundle, batch.planes))
         m = train_step(bundle, opt, batch, train_ube=False)
         if i % 100 == 0:
@@ -93,11 +97,13 @@ def pretrain(directory, eng, net_cfg, cfg, bundle: dict, opt, train_step, rng, d
 
 def main(argv=None) -> dict:
     """Run the learner; returns the main loop's counts and host times:
-    ``steps``, ``seconds`` (wall time of the loop, device included) and
-    ``assemble_seconds`` (draining the buffers and building the batches)."""
+    ``steps``, ``seconds`` (wall time of the loop, device included),
+    ``assemble_seconds`` (draining the buffers and building the batches)
+    and ``rnd_refreshes``, the ``(model step, rnd_min, rnd_max)`` of each
+    normalization refresh (RND nets; empty otherwise)."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--directory", required=True)
-    parser.add_argument("--net", default="net6_simhash", choices=[*NET_PRESETS, *NOT_PORTED_PRESETS])
+    parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--restart-targets", default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-steps", type=int, default=None, help="for tests")
@@ -129,6 +135,12 @@ def main(argv=None) -> dict:
         steps_per_checkpoint=args.steps_per_checkpoint or LearnConfig.steps_per_checkpoint,
     )
     net_cfg = NET_PRESETS[args.net]
+    if net_cfg.novelty == "ensemble":
+        # As in the reference, whose learn binary never trains the heads
+        # either (eee/src/ensemble.rs:320-339): the variance across heads
+        # at their initialisation is a constant, meaningless novelty.
+        log.warning("novelty='ensemble': the ensemble heads are NOT trained by this driver "
+                    "(the reference trains them only in its eee ensemble experiment)")
     eng = engine(net_cfg.n, half_komi=net_cfg.half_komi)
     rng = np.random.default_rng(args.seed)
     chunk_steps = args.chunk_steps or (1 if args.no_wait else 20)
@@ -138,10 +150,10 @@ def main(argv=None) -> dict:
     def batch_of(lines, splits=None):
         return make_batch_native(eng, "\n".join(lines) + "\n", rng, splits=splits, device=dev)
 
-    # SimHash nets publish weights-only latest checkpoints plus the log of
+    # Hash nets publish weights-only latest checkpoints plus the log of
     # newly set bits, computed against the bitset before each step (the
-    # matrix never trains, so they are the train step's own bits).
-    hash_logged = net_cfg.novelty == "simhash"
+    # hash constants never train, so they are the train step's own bits).
+    hash_logged = net_cfg.novelty in HASHED
 
     def fresh_pair(planes):
         if not hash_logged:
@@ -175,6 +187,19 @@ def main(argv=None) -> dict:
             torch.cat([i for i, _ in boot_idx]), torch.cat([f for _, f in boot_idx])
         ))
     ckpt.save_checkpoint(args.directory, "model_latest.ckpt", ckpt.strip_hash_bits(bundle))
+
+    rnd_refs, rnd_refreshes = None, []
+
+    def refresh_rnd(model_steps: int) -> None:
+        rnd_update_normalization(net_cfg, bundle, *rnd_refs)
+        lo, hi = float(bundle["rnd_min"]), float(bundle["rnd_max"])
+        rnd_refreshes.append((model_steps, lo, hi))
+        log.info("RND normalization at step %d: min=%.4f max=%.4f", model_steps, lo, hi)
+
+    if net_cfg.novelty == "rnd":
+        rnd_refs = tuple(random_plane_batch(eng, torch.Generator(device=dev).manual_seed(args.seed ^ salt), ply, 64)
+                         for salt, ply in ((0xE, 8), (0xF, 60)))
+        refresh_rnd(steps)
 
     sp_buffer = TargetBuffer(rng)
     re_buffer = TargetBuffer(rng)
@@ -215,7 +240,8 @@ def main(argv=None) -> dict:
         saver.drain()
         seconds = time.perf_counter() - t_loop
         log.info("learn loop: %d steps in %.3f s, batch assembly %.3f s", loop_steps, seconds, assemble_s)
-        return {"steps": loop_steps, "seconds": seconds, "assemble_seconds": assemble_s}
+        return {"steps": loop_steps, "seconds": seconds, "assemble_seconds": assemble_s,
+                "rnd_refreshes": rnd_refreshes}
 
     target_steps = None if args.max_steps is None else steps + args.max_steps
     model_steps = steps
@@ -277,6 +303,8 @@ def main(argv=None) -> dict:
         pending_metrics.append((first_step, c, metrics, pair))
         if len(pending_metrics) > 1:
             flush_metrics(pending_metrics.pop(0))
+        if rnd_refs is not None and model_steps % 100 == 0:
+            refresh_rnd(model_steps)
         if model_steps % cfg.steps_per_save == 0:
             saver.submit(args.directory, "model_latest.ckpt", ckpt.strip_hash_bits(bundle))
         if model_steps % cfg.steps_per_checkpoint == 0:

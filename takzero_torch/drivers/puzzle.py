@@ -23,7 +23,7 @@ import sqlite3
 
 import torch
 
-from ..config import NET_PRESETS, NOT_PORTED_PRESETS
+from ..config import NET_PRESETS
 from ..device import resolve_device
 from ..models.agent import make_net_evaluate, new_agent
 from ..search import eval as ev
@@ -163,7 +163,7 @@ def main(argv=None) -> list:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", required=True)
     parser.add_argument("--puzzle-db", required=True)
-    parser.add_argument("--net", default="net6_simhash", choices=[*NET_PRESETS, *NOT_PORTED_PRESETS])
+    parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--sampled-actions", type=int, default=64)
     parser.add_argument("--search-budget", type=int, default=768)
     parser.add_argument("--depths", default="3,5,7,9", help="tinue depths, comma-separated")

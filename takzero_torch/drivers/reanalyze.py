@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import NET_PRESETS, NOT_PORTED_PRESETS, ReanalyzeConfig
+from ..config import NET_PRESETS, ReanalyzeConfig
 from ..data import native_loader as nl
 from ..data.buffer import PositionBuffer
 from ..device import resolve_device
@@ -89,7 +89,7 @@ def main(argv=None) -> dict:
     and ``reloads``."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--directory", required=True)
-    parser.add_argument("--net", default="net6_simhash", choices=[*NET_PRESETS, *NOT_PORTED_PRESETS])
+    parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-steps", type=int, default=None, help="for tests")
     parser.add_argument("--batch", type=int, default=None)

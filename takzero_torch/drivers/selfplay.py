@@ -26,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import MAX_SELFPLAY_BUFFER_LEN, NET_PRESETS, NOT_PORTED_PRESETS, selfplay_preset
+from ..config import MAX_SELFPLAY_BUFFER_LEN, NET_PRESETS, selfplay_preset
 from ..device import resolve_device
 from ..models.agent import make_net_evaluate, new_agent
 from ..parallel import coordinator as co
@@ -48,7 +48,7 @@ def main(argv=None) -> dict:
     ``agent`` (the bundle as the loop left it)."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--directory", required=True)
-    parser.add_argument("--net", default="net6_simhash", choices=[*NET_PRESETS, *NOT_PORTED_PRESETS])
+    parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--exploration", action="store_true")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--max-steps", type=int, default=None, help="for tests")

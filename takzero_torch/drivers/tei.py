@@ -38,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import NET_PRESETS, NOT_PORTED_PRESETS
+from ..config import NET_PRESETS
 from ..device import resolve_device
 from ..models.agent import make_net_evaluate, new_agent
 from ..search import eval as ev
@@ -353,7 +353,7 @@ class TeiEngine:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--net", default="net6_simhash", choices=[*NET_PRESETS, *NOT_PORTED_PRESETS])
+    parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--model", default=None)
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     parser.add_argument("--devices", type=int, default=None, help="not ported")

@@ -4,7 +4,9 @@ Counterpart of ``takzero_tpu/models/network.py``: a conv3x3+BN+relu stem,
 ``blocks`` residual blocks of ``filters`` channels, a conv3x3 policy head
 flattened channel-major (the action-index layout, and NCHW's natural
 flatten), and value/UBE heads conv1x1 -> relu -> flatten -> dense(1)
-(tanh on the value); the UBE head reads the detached core.
+(tanh on the value); the UBE head reads the detached core.  Beside it, the
+novelty modules: the RND predictor/target pair (:class:`RndPair`, a conv
+tower or net5's MLP) and the ensemble value heads (:class:`EnsembleHeads`).
 
 The modules follow flax's numerics, not torch's defaults, in both modes
 (``net.train()`` / ``net.eval()``):
@@ -18,7 +20,12 @@ The modules follow flax's numerics, not torch's defaults, in both modes
   variance ``max(0, mean(x^2) - mean(x)^2)`` and updates the running
   statistics to ``0.9 * old + 0.1 * batch`` with that same (biased)
   variance; in eval mode it uses the running statistics;
-* the residual sums, the heads' flatten and their dense layers are float32.
+* the residual sums, the heads' flatten and their dense layers are float32;
+* a dense layer of the RND MLP (:func:`flax_dense`) is flax's
+  ``nn.Dense(dtype=compute_dtype)``, rounded as a convolution is;
+* the RND tower's LayerNorm (:class:`FlaxLayerNorm`) is flax's
+  ``nn.LayerNorm(reduction_axes=(1, 2, 3))``: float32, eps 1e-6, the fast
+  variance, a scale and a bias per channel.
 
 The folded inference path follows ``apply_folded``: each convolution
 takes its operands rounded to ``compute_dtype``, multiplies and accumulates
@@ -44,6 +51,9 @@ from ..tak.moves import action_space
 MAXIMUM_VARIANCE = 4.0  # value span is [-1, 1] -> variance <= 2^2
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9
+_LN_EPS = 1e-6
+RND_MLP_WIDTHS = (1024, 1024, 512)
+RND_OUT_FILTERS = 32  # the RND tower's last ConvBN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +62,12 @@ class NetConfig:
     half_komi: int = 4
     filters: int = 256
     blocks: int = 16
-    novelty: str = "simhash"  # simhash | none in this slice
+    novelty: str = "simhash"  # simhash | lcghash | rnd | ensemble | none
     hash_bits: int = 32
+    rnd_filters: int = 32
+    rnd_blocks: int = 4
+    rnd_mlp: bool = False  # net5-style MLP RND instead of the conv tower
+    ensemble_size: int = 16
     compute_dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -100,6 +114,32 @@ def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.T
     return y + bn.bias[None, :, None, None]
 
 
+def flax_dense(dense: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)`` with ``dense``'s weights: operands
+    rounded to ``dtype``, the float32 product rounded to ``dtype``, the bias
+    added in ``dtype``."""
+    y = F.linear(x.to(dtype).float(), dense.weight.to(dtype).float()).to(dtype)
+    return y + dense.bias.to(dtype)
+
+
+class FlaxLayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(reduction_axes=(1, 2, 3))`` on NCHW planes: float32
+    statistics over (C, H, W) with the fast variance, eps 1e-6, and a
+    scale and a bias per channel."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        x = x.float()
+        mean = x.mean(dim=(1, 2, 3), keepdim=True)
+        var = torch.clamp((x * x).mean(dim=(1, 2, 3), keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + _LN_EPS) * self.weight[None, :, None, None]
+        return (x - mean) * mul + self.bias[None, :, None, None]
+
+
 class ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, dtype: torch.dtype):
         super().__init__()
@@ -136,7 +176,10 @@ class Core(nn.Module):
 
 
 class ScalarHead(nn.Module):
-    """conv1x1 -> relu -> flatten -> dense(1) in float32; optional tanh."""
+    """conv1x1 -> relu -> flatten -> dense(1) in float32; optional tanh.
+
+    Applied to an NCHW core: the conv's single channel flattens to the same
+    order as JAX's NHWC."""
 
     def __init__(self, cfg: NetConfig, tanh: bool):
         super().__init__()
@@ -173,23 +216,122 @@ class TakNet(nn.Module):
         return policy, self.value(core), self.ube(core.detach())
 
 
-def init_network(cfg: NetConfig, seed: int = 0) -> TakNet:
-    """Random weights from a torch generator (He-normal convs, LeCun-normal
-    dense kernels, zero biases, identity BatchNorm), built on the CPU so the
-    draw does not depend on the device."""
+class RndTower(nn.Module):
+    """RND conv tower (net4_rnd.rs:126-166): LayerNorm over the float32
+    planes, then in ``compute_dtype`` conv/BN/relu, ``rnd_blocks`` residual
+    blocks of ``rnd_filters`` channels and a last ConvBN(32) without relu,
+    flattened in NHWC order (JAX's) to float32."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        dt = self.dtype = cfg.compute_dtype
+        c = input_channels(cfg.n)
+        self.norm = FlaxLayerNorm(c)
+        self.stem = ConvBN(c, cfg.rnd_filters, dt)
+        self.blocks = nn.ModuleList(ResBlock(cfg.rnd_filters, dt) for _ in range(cfg.rnd_blocks))
+        self.head = ConvBN(cfg.rnd_filters, RND_OUT_FILTERS, dt)
+
+    def forward(self, planes):
+        x = F.relu(self.stem(self.norm(planes).to(self.dtype)))
+        for blk in self.blocks:
+            x = blk(x)
+        return self.head(x).permute(0, 2, 3, 1).flatten(1).float()
+
+
+class RndMlp(nn.Module):
+    """net5-style MLP RND (net5.rs:122-148): the channel-major planes
+    flattened as they are, divided by their L2 norm + 1e-8, then three
+    dense layers (1024, 1024, 512) in ``compute_dtype``, each followed by
+    relu."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        self.dtype = cfg.compute_dtype
+        dims = (input_size(cfg.n),) + RND_MLP_WIDTHS
+        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims, dims[1:]))
+
+    def forward(self, planes):
+        x = planes.flatten(1).float()
+        x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
+        for dense in self.layers:
+            x = F.relu(flax_dense(dense, x, self.dtype))
+        return x.float()
+
+
+class RndPair(nn.Module):
+    """Predictor + frozen target; ``forward(planes)`` is the per-example
+    squared error f32[B].
+
+    The target is always in eval mode (JAX applies it with ``train=False``,
+    even in the train step): its BatchNorm keeps its initial running
+    statistics, it gets no gradient and its weights never change.
+    ``train()`` switches the predictor only.
+    """
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        tower = RndMlp if cfg.rnd_mlp else RndTower
+        self.predictor = tower(cfg)
+        self.target = tower(cfg).requires_grad_(False)
+        self.eval()
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.target.eval()
+        return self
+
+    def forward(self, planes):
+        pred = self.predictor(planes)
+        with torch.no_grad():
+            tgt = self.target(planes)
+        return torch.sum((pred - tgt) ** 2, dim=-1)
+
+
+class EnsembleHeads(nn.Module):
+    """``ensemble_size`` extra value heads over the detached core
+    (net4_ensemble.rs:130-171): core [B, F, N, N] -> f32[B, E]."""
+
+    def __init__(self, cfg: NetConfig):
+        super().__init__()
+        self.heads = nn.ModuleList(ScalarHead(cfg, tanh=True) for _ in range(cfg.ensemble_size))
+        self.eval()
+
+    def forward(self, core):
+        core = core.detach()
+        return torch.stack([head(core) for head in self.heads], dim=-1)
+
+
+@torch.no_grad()
+def _init_weights(module: nn.Module, seed: int) -> nn.Module:
+    """He-normal convs, LeCun-normal dense kernels and zero biases from a
+    torch generator on the CPU (so the draw does not depend on the device);
+    BatchNorm and LayerNorm keep their identity initialisation."""
     gen = torch.Generator().manual_seed(seed)
-    net = TakNet(cfg)
-    with torch.no_grad():
-        for mod in net.modules():
-            if isinstance(mod, nn.Conv2d):
-                fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
-                mod.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=gen)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.Linear):
-                mod.weight.normal_(0.0, (1.0 / mod.in_features) ** 0.5, generator=gen)
+    for mod in module.modules():
+        if isinstance(mod, nn.Conv2d):
+            fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+            mod.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=gen)
+            if mod.bias is not None:
                 mod.bias.zero_()
-    return net.eval()
+        elif isinstance(mod, nn.Linear):
+            mod.weight.normal_(0.0, (1.0 / mod.in_features) ** 0.5, generator=gen)
+            mod.bias.zero_()
+    return module.eval()
+
+
+def init_network(cfg: NetConfig, seed: int = 0) -> TakNet:
+    """A :class:`TakNet` with random weights (see :func:`_init_weights`)."""
+    return _init_weights(TakNet(cfg), seed)
+
+
+def init_rnd(cfg: NetConfig, seed: int = 0) -> RndPair:
+    """An :class:`RndPair` with random weights; predictor and target are
+    drawn one after the other from one generator, so they differ."""
+    return _init_weights(RndPair(cfg), seed)
+
+
+def init_ensemble(cfg: NetConfig, seed: int = 0) -> EnsembleHeads:
+    return _init_weights(EnsembleHeads(cfg), seed)
 
 
 def simhash_matrix(cfg: NetConfig, seed: int = 0) -> torch.Tensor:
@@ -258,8 +400,12 @@ def conv_precision(dtype):
 
 
 @torch.no_grad()
-def apply_folded(cfg: NetConfig, fw: dict, planes: torch.Tensor):
-    """Inference on folded weights: (policy f32[B,A], value f32[B], ube f32[B])."""
+def apply_folded(cfg: NetConfig, fw: dict, planes: torch.Tensor, with_core: bool = False):
+    """Inference on folded weights: (policy f32[B,A], value f32[B], ube f32[B]).
+
+    ``with_core`` appends the residual tower's output (``compute_dtype``
+    [B, F, N, N]) so that extra heads (the ensemble) reuse this forward
+    instead of running a second tower."""
     dt = cfg.compute_dtype
     with conv_precision(dt):
         x = F.relu(_conv2d(planes, *fw["stem"], dt)).to(dt)
@@ -276,4 +422,5 @@ def apply_folded(cfg: NetConfig, fw: dict, planes: torch.Tensor):
             out = (h @ dk.float().t() + db.float())[:, 0]
             return torch.tanh(out) if tanh else out
 
-        return policy, scalar_head(fw["value"], True), scalar_head(fw["ube"], False)
+        out = (policy, scalar_head(fw["value"], True), scalar_head(fw["ube"], False))
+        return out + (core,) if with_core else out

@@ -59,9 +59,14 @@ def state_to_planes(eng: TakEngine, state: TakState) -> torch.Tensor:
 
     default_stones, default_caps = DEFAULT_RESERVES[n]
     res = state.reserves.to(torch.float32)
-    stones_ratio = res[:, :, 0] / default_stones  # [B, 2]
+    # Every divisor is a tensor on the device: PyTorch's CUDA kernel turns a
+    # division by a Python number into a product with its reciprocal, 1 ulp
+    # off the division (the CPU's, JAX's) for some operands, and the LCG
+    # hash reads the planes' bits.
+    divisor = lambda v: torch.full((), float(v), device=dev)  # noqa: E731
+    stones_ratio = res[:, :, 0] / divisor(default_stones)  # [B, 2]
     if default_caps:
-        caps_ratio = res[:, :, 1] / default_caps
+        caps_ratio = res[:, :, 1] / divisor(default_caps)
     else:
         caps_ratio = torch.zeros_like(stones_ratio)
     bar = torch.arange(b, device=dev)
@@ -73,7 +78,7 @@ def state_to_planes(eng: TakEngine, state: TakState) -> torch.Tensor:
             stones_ratio[bar, 1 - me],
             caps_ratio[bar, 1 - me],
             (me == 1).to(torch.float32),
-            (eng.flat_diff(state).to(torch.float32) - eng.half_komi / 2.0) / s,
+            (eng.flat_diff(state).to(torch.float32) - eng.half_komi / 2.0) / divisor(s),
         ],
         dim=1,
     )  # [B, 6]

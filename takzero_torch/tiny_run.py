@@ -6,16 +6,20 @@ The port's counterpart of the loop of ``examples/tiny_run.py`` (SURVEY.md
 SimHash over 2^16 bits, selfplay batch 64, budget 48, k=8, lr 1e-3, 150
 pre-training steps on random games, 30 iterations of 12 moves and 16 train
 steps, then 64 evaluation games played both ways from shared random
-openings.
+openings.  ``--novelty`` picks any of the five estimators (``--rnd-mlp``
+for net5's MLP RND), with JAX's sizes: an RND tower of 16 filters and 2
+blocks, 8 ensemble heads.  An RND net refreshes its normalization bounds
+every 10th iteration that trains, from two fixed batches of random games
+(32 positions at ply 4 and 32 at ply 20).
 
-    python -m takzero_torch.tiny_run [--iters 30] [--out tiny_run.json] [--device cuda|cpu]
+    python -m takzero_torch.tiny_run [--iters 30] [--novelty rnd --beta 0.25] [--out tiny_run.json] [--device cuda|cpu]
 
 Writes a JSON summary: the trained net's wins, losses and draws against
 the initial one, the Elo gain from the Bradley-Terry fit
 (``tools/elo.py``), the last iteration's loss, the wall time and the card
 (``nvidia-smi`` name and power limit).  The train step updates the bundle
 in place, so the initial net is a deep copy taken before any step
-(weights, BatchNorm statistics and the SimHash seen-set).
+(weights, BatchNorm statistics and the novelty state).
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ import torch
 
 from .data.native_loader import make_batch_native
 from .device import resolve_device
+from .eee.harness import random_plane_batch
 from .evaluation import make_compete
-from .models.agent import make_net_evaluate, new_agent
+from .models.agent import make_net_evaluate, new_agent, rnd_update_normalization
 from .models.network import NetConfig
 from .search.openings import make_new_opening
 from .selfplay import SelfplayConfig, SelfplayEngine, gumbel_noise, make_draws
@@ -80,24 +85,19 @@ def main(argv=None, on_iteration=None) -> dict:
     parser.add_argument("--budget", type=int, default=48)
     parser.add_argument("--sampled", type=int, default=8)
     parser.add_argument("--lr", type=float, default=1e-3)
-    parser.add_argument("--novelty", default="simhash", choices=NOVELTY,
-                        help="simhash or none; the others are not ported yet")
-    parser.add_argument("--rnd-mlp", action="store_true", help="not ported (an RND variant)")
+    parser.add_argument("--novelty", default="simhash", choices=NOVELTY)
+    parser.add_argument("--rnd-mlp", action="store_true", help="net5-style MLP RND instead of the conv tower")
     parser.add_argument("--beta", type=float, default=0.0,
                         help=">0 turns on exploration (beta on half the batch)")
     parser.add_argument("--out", default="tiny_run.json")
     parser.add_argument("--save-ckpt", default=None, help="write the final bundle here")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = parser.parse_args(argv)
-    if args.novelty not in ("simhash", "none") or args.rnd_mlp:
-        raise NotImplementedError(
-            f"--novelty {args.novelty}{' --rnd-mlp' if args.rnd_mlp else ''}: takzero_torch ports the "
-            "simhash and none novelty variants; RND, ensemble and lcghash are not ported yet"
-        )
     dev = resolve_device(args.device)
 
     cfg = NetConfig(n=args.size, half_komi=args.half_komi, filters=args.filters, blocks=args.blocks,
-                    novelty=args.novelty, hash_bits=16)
+                    novelty=args.novelty, hash_bits=16, rnd_filters=16, rnd_blocks=2, ensemble_size=8,
+                    rnd_mlp=args.rnd_mlp)
     eng = engine(cfg.n, half_komi=cfg.half_komi)
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -122,6 +122,9 @@ def main(argv=None, on_iteration=None) -> dict:
     evaluator = make_net_evaluate(cfg, eng, device=dev)
     sp = SelfplayEngine(eng, sp_cfg, evaluator, device=dev)
     sp.reset(make_draws(gen, args.batch, children))
+    if cfg.novelty == "rnd":
+        rnd_refs = tuple(random_plane_batch(eng, torch.Generator(device=dev).manual_seed(seed), ply, 32)
+                         for seed, ply in ((9, 4), (10, 20)))
     buffer: list = []
     losses = []
     train_steps = 0
@@ -138,6 +141,8 @@ def main(argv=None, on_iteration=None) -> dict:
                 m = train_step(bundle, opt, make_batch_native(eng, _lines(picks), rng, device=dev), train_ube=True)
                 train_steps += 1
             losses.append(float(m["loss"]))
+            if cfg.novelty == "rnd" and it % 10 == 0:
+                rnd_update_normalization(cfg, bundle, *rnd_refs)
             print(f"iter {it}: buffer={len(buffer)} loss={losses[-1]:.3f} ({time.time() - t0:.0f}s)", flush=True)
         if on_iteration is not None:
             on_iteration(it)

@@ -9,17 +9,24 @@ reference learner's (learn/src/main.rs:375-423):
 * value: MSE against the discounted n-step return;
 * UBE: MSE in log-variance space, the target clamped to [-10, ln 4]
   (off during pre-training);
-* after each step the SimHash seen-set is updated with the batch inputs.
+* RND nets add ``loss_rnd``, the mean predictor-target squared error on
+  the batch inputs (learn/src/main.rs:404), and train the predictor with
+  the net;
+* after each step the hash seen-set (SimHash, LCG hash) is updated with
+  the batch inputs.
 
 The port trains in place: a step updates the bundle's ``net`` (weights and
-BatchNorm running statistics) and ``hash_bits``, and the optimizer's
-state, and drops the bundle's ``folded`` weights (see
+BatchNorm running statistics), the RND predictor and ``hash_bits``, and
+the optimizer's state, and drops the bundle's ``folded`` weights (see
 ``models/agent.py:folded_weights``).  The optimizer is optax's ``adam``
-as ``torch.optim.Adam``.  Parameters that get no gradient (the UBE head
-while ``train_ube`` is False) get zero gradients, not ``None``: torch's
-Adam skips a parameter without a gradient and does not advance its step
-count, while optax gives it a zero update and advances its one global
-count; the first UBE step would otherwise use another bias correction.
+as ``torch.optim.Adam`` over :func:`trainable_of`.  Parameters that get no
+gradient (the UBE head while ``train_ube`` is False) get zero gradients,
+not ``None``: torch's Adam skips a parameter without a gradient and does
+not advance its step count, while optax gives it a zero update and
+advances its one global count; the first UBE step would otherwise use
+another bias correction.  The RND target is not in the optimizer: optax
+holds it, but its gradient is zero (stop_gradient), so Adam's update of it
+is exactly zero.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.agent import hash_update
+from ..models.agent import HASHED, hash_update
 from ..models.network import MAXIMUM_VARIANCE, NetConfig, TakNet, conv_precision
 
 MINIMUM_UBE_TARGET = -10.0
@@ -70,10 +77,21 @@ def loss_fn(cfg: NetConfig, net: TakNet, batch: Batch, train_ube: bool):
     return loss, metrics
 
 
+def trainable_of(bundle: dict) -> list:
+    """The parameters the optimizer tracks: the net's, and the RND
+    predictor's.  The ensemble heads are not here: the reference's learn
+    binary never trains them (eee/src/ensemble.rs:320-339), and
+    ``drivers/learn.py`` warns that they stay at their initialisation."""
+    params = list(bundle["net"].parameters())
+    if "rnd" in bundle:
+        params += list(bundle["rnd"].predictor.parameters())
+    return params
+
+
 def make_optimizer(bundle: dict, learning_rate: float = 1e-4) -> torch.optim.Adam:
     """optax's ``adam(learning_rate)``: betas (0.9, 0.999), eps 1e-8
     (reference: Adam lr=1e-4, learn:122)."""
-    return torch.optim.Adam(bundle["net"].parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(trainable_of(bundle), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
 def make_train_step(cfg: NetConfig):
@@ -84,20 +102,29 @@ def make_train_step(cfg: NetConfig):
     """
 
     def train_step(bundle: dict, opt: torch.optim.Optimizer, batch: Batch, train_ube: bool) -> dict:
-        net = bundle["net"]
-        net.train()
+        net, rnd = bundle["net"], bundle.get("rnd")
+        modules = (net,) if rnd is None else (net, rnd)
+        for mod in modules:
+            mod.train()
         opt.zero_grad(set_to_none=False)
         with conv_precision(cfg.compute_dtype):
             loss, metrics = loss_fn(cfg, net, batch, train_ube)
+            if rnd is not None:
+                # The predictor in train mode (batch statistics, running
+                # statistics updated); the target stays in eval mode.
+                loss_rnd = torch.mean(rnd(batch.planes))
+                loss = loss + loss_rnd
+                metrics = {**metrics, "loss": loss.detach(), "loss_rnd": loss_rnd.detach()}
             loss.backward()
         for group in opt.param_groups:
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         opt.step()
-        net.eval()
+        for mod in modules:
+            mod.eval()
         bundle.pop("folded", None)
-        if cfg.novelty == "simhash":
+        if cfg.novelty in HASHED:
             hash_update(cfg, bundle, batch.planes)
         return metrics
 

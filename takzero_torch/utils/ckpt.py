@@ -10,10 +10,16 @@ never see a torn file.
 Actors follow the learner through :class:`LatestPoller`.
 
 Model files are the port's own format, not the JAX package's flax
-msgpack: ``torch.save`` of a dict of tensors only,
+msgpack: ``torch.save`` of a dict of tensors only, the bundle's modules
+as state dicts and its tensors as they are (each where the novelty has
+it; see ``models/agent.py``),
 
-    {"net": TakNet.state_dict(), "hash_matrix": f32[In, bits],
-     "hash_bits": int32[2**bits / 32]}   # hash_bits: step checkpoints only
+    {"net": TakNet.state_dict(),
+     "rnd": RndPair.state_dict(),             # predictor and target
+     "ensemble": EnsembleHeads.state_dict(),
+     "hash_matrix": f32[In, bits], "hash_scale": f32[C, N, N],
+     "rnd_min": f32[], "rnd_max": f32[],
+     "hash_bits": int32[2**bits / 32]}        # hash_bits: step checkpoints only
 
 read back with ``torch.load(..., weights_only=True)``.  A JAX run's
 weights come over as numpy arrays through ``takzero_torch/bridge.py``.
@@ -43,6 +49,8 @@ from .flush import drain_index_pairs
 
 _STEP_RE = re.compile(r"model_(\d+)\.ckpt$")
 HASH_LOG = "hash_log.bin"
+MODULES = ("net", "rnd", "ensemble")  # saved as state dicts
+TENSORS = ("hash_matrix", "hash_scale", "rnd_min", "rnd_max", "hash_bits")
 
 
 def strip_hash_bits(bundle: dict) -> dict:
@@ -113,10 +121,8 @@ def checkpoint_state(bundle: dict, clone: bool = False) -> dict:
     cannot change.
     """
     take = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
-    state = {"net": {k: take(v) for k, v in bundle["net"].state_dict().items()}}
-    for key in ("hash_matrix", "hash_bits"):
-        if key in bundle:
-            state[key] = take(bundle[key])
+    state = {key: {k: take(v) for k, v in bundle[key].state_dict().items()} for key in MODULES if key in bundle}
+    state.update({key: take(bundle[key]) for key in TENSORS if key in bundle})
     return state
 
 
@@ -174,30 +180,33 @@ def read_checkpoint(path) -> dict:
 
 def _bundle_tensors(bundle: dict) -> dict:
     """The bundle's checkpointed tensors by flat key (``net.<name>``,
-    ``hash_matrix``, ``hash_bits``); they share storage with the bundle."""
-    out = {f"net.{k}": v for k, v in bundle["net"].state_dict().items()}
-    out.update({k: bundle[k] for k in ("hash_matrix", "hash_bits") if k in bundle})
+    ``rnd.<name>``, ``ensemble.<name>``, ``hash_matrix``, ...); they share
+    storage with the bundle."""
+    out = {f"{key}.{k}": v for key in MODULES if key in bundle for k, v in bundle[key].state_dict().items()}
+    out.update({k: bundle[k] for k in TENSORS if k in bundle})
     return out
 
 
 def _file_tensors(state: dict) -> dict:
     """A checkpoint's entries by the same flat keys."""
-    net = state.get("net")
-    out = {f"net.{k}": v for k, v in net.items()} if isinstance(net, dict) else {}
-    out.update({k: v for k, v in state.items() if k != "net"})
+    out = {}
+    for key, v in state.items():
+        if isinstance(v, dict):
+            out.update({f"{key}.{k}": vv for k, vv in v.items()})
+        else:
+            out[key] = v
     return out
 
 
 def _check_fits(path, state: dict, bundle: dict) -> None:
     """Raise :class:`CheckpointMismatch` unless every tensor of ``state``
     has its place in ``bundle`` with the same shape and dtype, and every
-    weight of the bundle's net is in ``state``."""
+    tensor of the bundle but its seen-set is in ``state``; the message
+    names each missing and each unexpected key."""
     if not isinstance(state.get("net"), dict):
         raise CheckpointMismatch(f"{path}: no 'net' weights")
     want, have = _bundle_tensors(bundle), _file_tensors(state)
-    missing = sorted(k for k in want if k.startswith("net.") and k not in have)
-    if ("hash_matrix" in want) != ("hash_matrix" in have):
-        missing.append("hash_matrix")
+    missing = sorted(k for k in want if k != "hash_bits" and k not in have)
     extra = sorted(set(have) - set(want))
     if missing or extra:
         raise CheckpointMismatch(f"{path}: does not fit the bundle: missing {missing}, unexpected {extra}")
@@ -221,9 +230,11 @@ def load_checkpoint(path, bundle: dict) -> dict:
     """
     state = read_checkpoint(path)
     _check_fits(path, state, bundle)
-    bundle["net"].load_state_dict(state["net"])
+    for key in MODULES:
+        if key in bundle:
+            bundle[key].load_state_dict(state[key])
     with torch.no_grad():
-        for key in ("hash_matrix", "hash_bits"):
+        for key in TENSORS:
             if key in state:
                 bundle[key].copy_(state[key])
     bundle.pop("folded", None)
@@ -310,8 +321,10 @@ class LatestPoller:
     call into the bundle's seen-set, in place, with ``bitset_set``, and
     reloads the weights only when the file's ``(mtime_ns, size)`` changed.
     A weights-only file leaves the seen-set to the hash log (the rule of
-    :func:`load_checkpoint`); ``hash_matrix`` comes with the file, so the
-    actor hashes as the learner does from its first reload on.
+    :func:`load_checkpoint`); everything else comes with the file: the
+    hash constants, so the actor hashes as the learner does from its first
+    reload on, and the RND predictor, target and bounds, so it normalizes
+    the RND error as the learner does.
 
     A torn or truncated read keeps the current weights, logs why, and is
     tried again at the next call.  A file of another format

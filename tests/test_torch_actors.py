@@ -343,8 +343,6 @@ def test_actor_drivers_refuse_what_is_not_ported(tmp_path, monkeypatch):
     for main in (selfplay.main, reanalyze.main):
         with pytest.raises(NotImplementedError, match="queue 1, item 5"):
             main(base + ["--devices", "2"])
-        with pytest.raises(NotImplementedError, match="RND"):
-            main(base + ["--net", "net4_rnd"])
     monkeypatch.setenv("WORLD_SIZE", "2")
     for main in (selfplay.main, reanalyze.main):
         with pytest.raises(NotImplementedError, match="multihost"):

@@ -288,8 +288,6 @@ def test_coscheduled_refuses_what_is_not_ported(tmp_path, monkeypatch):
     base = ["--directory", str(tmp_path), "--net", "tiny3", "--device", "cpu", "--max-moves", "1"]
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         coscheduled.main(base + ["--devices", "2"])
-    with pytest.raises(NotImplementedError, match="RND"):
-        coscheduled.main(base + ["--net", "net4_rnd"])
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="multihost"):
         coscheduled.main(base)
@@ -330,5 +328,3 @@ def test_tiny_run_at_a_tiny_cut(tmp_path):
     assert not torch.equal(trained["net"].core.stem.bn.running_mean, initial["net"].core.stem.bn.running_mean)
     assert int(trained["hash_bits"].ne(0).sum()) > 0 and int(initial["hash_bits"].ne(0).sum()) == 0
     assert (tmp_path / "final.ckpt").exists()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tiny_run.main(["--novelty", "rnd", "--device", "cpu"])

@@ -216,3 +216,29 @@ def test_gumbel_search_8x8_card_equals_cpu(cuda):
     (tc, sc), (tp, sp) = out[str(cuda)], out["cpu"]
     assert torch.equal(sc.cpu(), sp)
     _trees_equal(tc, tp, "8x8 search", tol=1e-4)
+
+
+@pytest.mark.parametrize("n", [3, 4, 5, 6])
+def test_planes_and_lcghash_card_equal_cpu(cuda, n):
+    """The input planes bit for bit on the card and the CPU (the LCG hash
+    reads their bits), and so the LCG hash indices."""
+    from takzero_torch.models.agent import lcghash_indices
+    from takzero_torch.models.network import NetConfig
+    from takzero_torch.ops.repr import input_channels, state_to_planes
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.tak.state import where_state
+
+    eng = engine(n, half_komi=4)
+    gen = torch.Generator().manual_seed(n)
+    envs = eng.initial(256)
+    for _ in range(3 * n * n):  # random games of every length, reserves spent
+        legal = eng.legal_mask(envs)
+        act = torch.multinomial(legal.float() + 1e-9, 1, generator=gen)[:, 0]
+        live = (eng.terminal_kind(envs) == 0) & (torch.rand(256, generator=gen) < 0.9)
+        envs = where_state(live, eng.step(envs, act), envs)
+    want = state_to_planes(eng, envs)
+    got = state_to_planes(eng, envs.map(lambda t: t.to(cuda)))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    cfg = NetConfig(n=n, novelty="lcghash", hash_bits=32)
+    scale = torch.randn(input_channels(n), n, n, generator=gen)
+    assert torch.equal(lcghash_indices(cfg, scale.to(cuda), got).cpu(), lcghash_indices(cfg, scale, want))

@@ -101,8 +101,6 @@ def test_learn_driver_end_to_end(tmp_path):
 def test_learn_driver_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         _learn(tmp_path, "--devices", "2")
-    with pytest.raises(NotImplementedError, match="RND"):
-        _learn(tmp_path, "--net", "net4_rnd")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="multihost"):
         _learn(tmp_path)
