@@ -153,7 +153,33 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    ensemble learner warns that its heads stay untrained), one selfplay
    move each with kernel A (budget+1) launches and B none, the variance in
    [0, 4], and two net5 learner steps;
-14. a ``kernels`` JSON line: each kernel with what it replaces, its
+14. the EEE experiments and the visualizers, at the JAX defaults' widths
+   with steps and plies cut, on the replays and targets that phases 9 and
+   11 wrote: (a) ``eee.generalization`` at 4x4, batch 256, SimHash over
+   2^26 bits for 20 steps and the LCG hash for 3 (``current`` 4.0 at step
+   0, ``after`` exactly 0.0 at every step, values in [0, 4]; kernel B 8
+   launches a SimHash step, none under the LCG hash, its words on one
+   step's [256, 448] planes equal ``simhash_plain``'s under phase 4's
+   rule); (b) ``eee.rnd`` with two 32x4 bf16 towers, batch 256, 20 steps
+   (finite, ``after <= current`` on the last step, the reference's CSV
+   header); (c) a 16x2 ensemble step on the card against the CPU (float32
+   1e-4, bf16 5e-2), then ``eee.ensemble`` at 16x256 bf16 with 16 heads,
+   batch 128, 5 steps (losses finite, ``loss_ensemble >= 0``, variances in
+   [0, 4]); each logs whether ``early`` and ``late`` came from the replay
+   pools or fell back to random games; (d) ``drivers/eee.py seen-ratio``
+   at net6_simhash, batch 65,536, plies 0-15, on the step checkpoint of a
+   short learner pre-training (ratios in [0, 1], kernel B once a ply, its
+   words on the last ply's [65536, 1296] planes equal ``simhash_plain``'s
+   under phase 4's rule, seconds per ply, peak memory), and at batch 512
+   the card's ratios equal to the CPU's from the same draws; (e)
+   ``drivers/graph.py`` and ``drivers/visualize_replay_buffer.py`` on the
+   two replay files; (f) ``drivers/visualize_search.py``: a small RND net's
+   tree on the card against the CPU (trees equal, floats within 1e-4), then
+   net4_rnd at full width, 200 visits, betas 0 and 1 (each SVG written,
+   root visits = visits, kernel A once a simulation, its inputs equal
+   ``topk_plain``'s at f32[1, 944] with k = 1, 64 and 944, timed at k=64
+   beside ``torch.topk``);
+15. a ``kernels`` JSON line: each kernel with what it replaces, its
    launches on the move program (``launches``), on the learner
    (``learner_launches``), on the selfplay driver and on reanalyze
    (``selfplay_driver_launches``, ``reanalyze_launches``), on the serve
@@ -170,8 +196,12 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    iteration of tiny_run, each read from the counters in this run), on
    the novelty phases (``rnd_loop_selfplay_driver_launches``,
    ``rnd_loop_reanalyze_launches``, ``lcghash_launches_per_move``,
-   ``ensemble_launches_per_move``, ``net5_launches_per_move``), and
-   kernel A at 5x5 (``at_5x5``).
+   ``ensemble_launches_per_move``, ``net5_launches_per_move``), kernel A
+   at 5x5 (``at_5x5``), and on phase 14 (``eee_generalization_launches_per_step``,
+   ``eee_generalization_lcghash_launches``, ``seen_ratio_launches_per_ply``,
+   ``visualize_search_launches_per_simulation``) with kernel A at
+   f32[1, 944] (``at_1x944``) and kernel B at [65536, 1296] x [1296, 32]
+   (``at_seen_ratio``) and [256, 448] x [448, 26] (``at_eee_generalization``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
@@ -192,6 +222,7 @@ import contextlib
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1078,15 +1109,28 @@ def check_replays(eng, lines: list, what: str) -> int:
     return len(replays)
 
 
+def keep_run_files(d, keep, tag: str) -> None:
+    """Copy a run's replays and targets to ``keep`` as ``{tag}_replays.txt``,
+    ``{tag}_targets-selfplay.txt`` and ``{tag}_targets-reanalyze.txt``
+    (phase 14 reads them after the run's directory is gone)."""
+    import shutil
+
+    from takzero_torch.parallel import coordinator as co
+
+    for name in (co.REPLAYS, co.TARGETS_SELFPLAY, co.TARGETS_REANALYZE):
+        shutil.copy(Path(d, name), Path(keep, f"{tag}_{name}"))
+
+
 def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: int = 8, budget: int = 24,
-                   games: int = 64) -> dict:
+                   games: int = 64, keep=None) -> dict:
     """The actor-learner loop through the three drivers in one directory.
 
     Any preset: kernel B must launch (budget+1) per search on a SimHash net
     and never on another; a hash net's actors must hold the seen-set of the
     whole hash log, other nets must write none; an RND net's learner must
     refresh its bounds (min < max, finite) at the start of each run, and
-    the actor's poller must load them."""
+    the actor's poller must load them.  ``keep``: a directory that receives
+    the run's replays and targets (:func:`keep_run_files`, tag ``loop``)."""
     import json
     import math
     import tempfile
@@ -1197,6 +1241,8 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         if n_replays != sp["replays"] + sp2_replays or sp["replays"] < games:
             raise AssertionError(f"{n_replays} replays in the file, the drivers finished "
                                  f"{sp['replays']} + {sp2_replays} games (at least {games} expected)")
+        if keep is not None:
+            keep_run_files(d, keep, "loop")
 
     out = {
         "phase": "actor-learner loop", "card": card_line(), "net": f"{net} ({net_label(cfg)})",
@@ -1244,20 +1290,26 @@ PUZZLE_COUNTS = {("tinue", 3): 50, ("tinue", 5): 20, ("tinue", 7): 20, ("tinue",
 
 
 @contextlib.contextmanager
-def recording_kernel_inputs(calls: list):
-    """Record (kernel, input copy, k or matrix) of every kernel call the
-    search (A) and the evaluator (B) make; the calls still launch."""
+def recording_kernel_inputs(calls: list, last: int | None = None):
+    """Record (kernel, input copy, k or matrix, host time) of every kernel
+    call the search (A) and the evaluator (B) make, or of the ``last`` most
+    recent ones; the calls still launch."""
     import takzero_torch.models.agent as agent
     import takzero_torch.search.core as core
     import takzero_torch.search.serve as serve
     from takzero_torch.ops import simhash, topk
 
+    def record(kernel, x, arg):
+        calls.append((kernel, x.clone(), arg, time.perf_counter()))
+        if last is not None:
+            del calls[:-last]
+
     def rec_a(x, k):
-        calls.append(("A", x.clone(), k))
+        record("A", x, k)
         return topk.exact_top_k_unsorted(x, k)
 
     def rec_b(x, m):
-        calls.append(("B", x.clone(), m))
+        record("B", x, m)
         return simhash.simhash_pack(x, m)
 
     saved = core.exact_top_k_unsorted, serve.exact_top_k_unsorted, agent.simhash_pack
@@ -1302,8 +1354,8 @@ def check_serve_kernels(engine_, tps: str, dev) -> dict:
     with recording_kernel_inputs(calls):
         engine_._run(tree)
     torch.cuda.synchronize()
-    a_in = [(x, k) for w, x, k in calls if w == "A"]
-    b_in = [(x, m) for w, x, m in calls if w == "B"]
+    a_in = [(x, k) for w, x, k, _ in calls if w == "A"]
+    b_in = [(x, m) for w, x, m, _ in calls if w == "B"]
     shapes = {"A": [list(x.shape) for x, _ in a_in], "B": [list(x.shape) for x, _ in b_in]}
     if shapes != {"A": [[1, 9036], [127, 9036]], "B": [[1, 1296], [127, 1296]]}:
         raise AssertionError(f"serve chunk kernel inputs {shapes}")
@@ -1611,8 +1663,9 @@ class _CountingDraws:
 
 
 def run_coscheduled(dev, net: str = "net4_simhash", batch: int = 128, sampled: int = 8, budget: int = 24,
-                    moves: int = 52, min_positions: int = 2048) -> dict:
-    """11: ``takzero_torch.drivers.coscheduled`` at full width with reanalyze."""
+                    moves: int = 52, min_positions: int = 2048, keep=None) -> dict:
+    """11: ``takzero_torch.drivers.coscheduled`` at full width with reanalyze
+    (``keep``: as :func:`run_actor_loop`'s, tag ``cosched``)."""
     import math
 
     import numpy as np
@@ -1680,6 +1733,8 @@ def run_coscheduled(dev, net: str = "net4_simhash", batch: int = 128, sampled: i
             raise AssertionError(f"coscheduled: step checkpoint {path} equals model_0000000.ckpt")
         if "hash_bits" in ckpt.read_checkpoint(ckpt.latest_path(d)):
             raise AssertionError("coscheduled: model_latest.ckpt holds the seen-set")
+        if keep is not None:
+            keep_run_files(d, keep, "cosched")
         idx, _ = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)
         seen = bitset_set(bitset_init(cfg.hash_bits, dev), torch.from_numpy(idx.astype(np.int64)).to(dev))
         if not torch.equal(seen, agent["hash_bits"]) or not torch.equal(seen.cpu(), last["hash_bits"]):
@@ -2032,6 +2087,409 @@ def run_ensemble_and_net5(dev, batch: int = 128, sampled: int = 8, budget: int =
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: EEE and the visualizers.
+# ---------------------------------------------------------------------------
+
+def time_simhash(x, m) -> dict:
+    """Kernel B at x's shape: device and call time, the plain version's and the bound."""
+    from takzero_torch.ops import simhash
+
+    b, inp = x.shape
+    bits = m.shape[1]
+    out = dict(shape=[b, inp, bits], kernel_ms=device_ms(lambda: simhash.simhash_pack(x, m))[0],
+               call_ms=call_ms(lambda: simhash.simhash_pack(x, m)),
+               plain_ms=device_ms(lambda: simhash.simhash_plain(x, m))[0], library_ms=None)
+    out["bound_ms"], out["bound_by"] = bound_ms(b * inp * 4 + inp * bits * 4 + b * 8, 2 * b * inp * bits)
+    return out
+
+
+def _eee_rows_gate(rows, what: str, steps: int, lo: float = 0.0, hi: float | None = 4.0) -> None:
+    import math
+
+    if len(rows) != steps:
+        raise AssertionError(f"{what}: {len(rows)} steps, expected {steps}")
+    for m in rows:
+        for k, v in m.items():
+            if not math.isfinite(v) or (k not in ("loss", "loss_policy", "loss_value", "loss_ube", "loss_ensemble")
+                                        and hi is not None and not lo <= v <= hi):
+                raise AssertionError(f"{what}: {k} = {v}")
+
+
+def _csv_gate(path, steps: int, what: str) -> None:
+    from takzero_torch.eee.rnd import CSV_HEADER  # the reference's layout (rnd.rs:322-340)
+
+    lines = Path(path).read_text(encoding="utf-8").splitlines()
+    if lines[0] != CSV_HEADER or [int(x.split(",")[0]) for x in lines[1:]] != list(range(steps)):
+        raise AssertionError(f"{what}: the CSV is not the reference's header and one row per step: {lines[:2]}")
+
+
+def run_eee_generalization(dev, replays, out, steps: int = 20, lcg_steps: int = 3) -> dict:
+    """14a: ``eee.generalization.run`` at its defaults (4x4, half-komi 4,
+    batch 256) on phases 9 and 11's replays, SimHash over 2^26 bits for
+    ``steps`` steps and the LCG hash for ``lcg_steps``: ``current`` 4.0 at
+    step 0, ``after`` exactly 0.0 at every step, every value in [0, 4];
+    kernel B 8 launches a SimHash step and none under the LCG hash; kernel
+    B's words on the last step's planes equal ``simhash_plain``'s under
+    phase 4's rule, and B timed at that shape."""
+    import torch
+
+    from takzero_torch.eee import generalization
+
+    res = {}
+    for novelty, n_steps in (("simhash", steps), ("lcghash", lcg_steps)):
+        calls, report = [], {}
+        csv = Path(out, f"eee_generalization_{novelty}.csv")
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        with recording_kernel_inputs(calls, last=8), contextlib.redirect_stdout(io.StringIO()):
+            rows = generalization.run(replays, csv, n=4, half_komi=4, novelty=novelty, hash_bits=26, steps=n_steps,
+                                      batch_size=256, device=dev, report=report)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        per_step = 8 if novelty == "simhash" else 0
+        if launches != {"exact_top_k_unsorted": 0, "simhash_pack": per_step * n_steps}:
+            raise AssertionError(f"EEE generalization ({novelty}): launches {launches}, expected B {per_step} a step")
+        _eee_rows_gate(rows, f"EEE generalization ({novelty})", n_steps)
+        if rows[0]["current"] != 4.0 or any(m["after"] != 0.0 for m in rows):
+            raise AssertionError(f"EEE generalization ({novelty}): current {rows[0]['current']} at step 0, "
+                                 f"after {[m['after'] for m in rows]}")
+        _csv_gate(csv, n_steps, f"EEE generalization ({novelty})")
+        res[novelty] = {"steps": n_steps, "seconds": seconds, "seconds_per_step": seconds / n_steps,
+                        "launches": launches, "reference_batches": report["sources"],
+                        "replay_positions": report["positions"], "first": rows[0], "last": rows[-1]}
+        if novelty == "simhash":
+            shapes = [(w, list(x.shape)) for w, x, _, _ in calls]
+            if shapes != [("B", [256, 448])] * 8:
+                raise AssertionError(f"EEE generalization: kernel B inputs {shapes} on the last step")
+            err = max(expect_simhash_equal(x, m, f"EEE generalization step planes, call {i}")
+                      for i, (_, x, m, _) in enumerate(calls))
+            _, x, m, _ = calls[0]  # the training batch
+            res["at_eee_generalization"] = {**time_simhash(x, m), "max_abs_err": err}
+            del calls
+    return res
+
+
+def run_eee_rnd(dev, replays, out, steps: int = 20) -> dict:
+    """14b: ``eee.rnd.run`` at its defaults (two 32x4 RND towers, bf16,
+    batch 256) for ``steps`` steps: every metric finite, ``after <=
+    current`` on the last step, the reference's CSV header; no kernel."""
+    import torch
+
+    from takzero_torch.eee import rnd
+
+    report = {}
+    csv = Path(out, "eee_rnd.csv")
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = rnd.run(replays, csv, n=4, half_komi=4, steps=steps, batch_size=256, device=dev, report=report)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _expect_launches("EEE rnd", 0, 1)
+    _eee_rows_gate(rows, "EEE rnd", steps, hi=None)
+    if not rows[-1]["after"] <= rows[-1]["current"]:
+        raise AssertionError(f"EEE rnd: after {rows[-1]['after']} > current {rows[-1]['current']} on the last step")
+    _csv_gate(csv, steps, "EEE rnd")
+    return {"steps": steps, "seconds": seconds, "seconds_per_step": seconds / steps,
+            "reference_batches": report["sources"], "replay_positions": report["positions"],
+            "first": rows[0], "last": rows[-1]}
+
+
+def check_ensemble_step_card_vs_cpu(dev, targets) -> dict:
+    """14c, first: one ensemble step of a 16x2 net with 16 heads on the card
+    against the same step on the CPU, from the same weights, batch and
+    draws: float32 metrics within 1e-4, bf16 within 5e-2 (phase 13a's
+    tolerances)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from takzero_torch.eee import ensemble
+    from takzero_torch.eee.harness import random_plane_batch
+    from takzero_torch.models.agent import new_agent
+    from takzero_torch.models.network import NetConfig
+    from takzero_torch.selfplay import gumbel_noise
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.train.data import make_batch
+
+    eng = engine(4, half_komi=4)
+    picked = ensemble.read_targets(4, targets, 16)[:32]
+    gumbel = gumbel_noise(torch.Generator().manual_seed(14), (len(picked), eng.num_actions))
+    refs = {name: random_plane_batch(eng, torch.Generator().manual_seed(20 + i), ply, 32)
+            for i, (name, ply) in enumerate(zip(("early", "late", "random_early", "random_late", "impossible_early"),
+                                                (8, 60, 8, 60, 8)))}
+    base = NetConfig(n=4, half_komi=4, filters=16, blocks=2, novelty="ensemble", ensemble_size=16)
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        got = {}
+        for where in ("cpu", dev):
+            bundle = new_agent(cfg, seed=3, device=where)
+            batch, states = make_batch(eng, picked, np.random.default_rng(5), return_states=True, device=where)
+            step = ensemble.make_ensemble_step(cfg, eng)
+            got[str(where)] = ensemble.to_floats(step(bundle, ensemble.make_ensemble_optimizer(bundle), batch, states,
+                                                      gumbel.to(where), {k: v.to(where) for k, v in refs.items()}))
+        cpu, card = got["cpu"], got[str(dev)]
+        worst = max(abs(card[k] - v) / max(1.0, abs(v)) for k, v in cpu.items())
+        if set(card) != set(cpu) or worst > tol:
+            raise AssertionError(f"ensemble step 16x2 {dtype}: card {card}, CPU {cpu}")
+        out[str(dtype).split(".")[-1]] = {"max_rel_diff": worst, "card": card}
+    return out
+
+
+def run_eee_ensemble(dev, targets, out, steps: int = 5) -> dict:
+    """14c: ``eee.ensemble.run`` at its defaults (16x256 bf16, 16 heads,
+    batch 128) for ``steps`` steps on phases 9 and 11's targets: the losses
+    finite, ``loss_ensemble >= 0``, the variances in [0, 4]; no kernel."""
+    import torch
+
+    from takzero_torch.eee import ensemble
+
+    report = {}
+    csv = Path(out, "eee_ensemble.csv")
+    _zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = ensemble.run(targets, csv, n=4, half_komi=4, steps=steps, batch_size=128, device=dev, report=report)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _expect_launches("EEE ensemble", 0, 1)
+    _eee_rows_gate(rows, "EEE ensemble", steps)
+    if not all(m["loss_ensemble"] >= 0 for m in rows):
+        raise AssertionError(f"EEE ensemble: a negative ensemble loss in {rows}")
+    _csv_gate(csv, steps, "EEE ensemble")
+    return {"steps": steps, "seconds": seconds, "seconds_per_step": seconds / steps, "targets": report["targets"],
+            "reference_batches": report["sources"], "first": rows[0], "last": rows[-1],
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def run_seen_ratio(dev, out, plies: int = 16, batch: int = 65_536, small: int = 512) -> dict:
+    """14d: ``drivers/eee.py seen-ratio`` at net6_simhash (SimHash over
+    2^32 bits), batch 65,536, plies 0 to ``plies``-1, on the step
+    checkpoint of a short learner pre-training (640 random-game targets, 5
+    steps): every ratio in [0, 1], kernel B once a ply; its words on the
+    last ply's 65,536 rows equal ``simhash_plain``'s under phase 4's rule
+    (rows with a near-zero dot counted), B timed at that shape; seconds per
+    ply and peak device memory, and the games of ply 8 under the profiler;
+    then the card's ratios at batch ``small`` equal the CPU's from the same
+    draws."""
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.drivers import eee, learn
+    from takzero_torch.eee import seen_ratio
+    from takzero_torch.eee.harness import random_draws, random_planes
+    from takzero_torch.models.agent import new_agent
+    from takzero_torch.selfplay import gumbel_noise
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.utils import ckpt
+
+    cfg = NET_PRESETS["net6_simhash"]
+    with tempfile.TemporaryDirectory(prefix="takzero_seen_") as d:
+        learn.main(["--directory", d, "--net", "net6_simhash", "--device", str(dev), "--batch-size", "128",
+                    "--no-wait", "--seed", "0", "--pretrain-targets", "640", "--pretrain-steps", "5",
+                    "--max-steps", "0"])
+        _, model = ckpt.model_path_with_most_steps(d)
+        torch.cuda.empty_cache()
+        calls = []
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with recording_kernel_inputs(calls, last=2), contextlib.redirect_stdout(io.StringIO()):
+            pairs = eee.main(["seen-ratio", "--model", str(model), "--net", "net6_simhash", "--max-ply", str(plies),
+                              "--batch", str(batch), "--device", str(dev), "--csv", str(Path(out, "seen_ratio.csv"))])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        launches = _launch_counts()
+        if launches != {"exact_top_k_unsorted": 0, "simhash_pack": plies}:
+            raise AssertionError(f"seen-ratio: launches {launches}, expected B once per ply of {plies}")
+        if [p for p, _ in pairs] != list(range(plies)) or not all(0.0 <= r <= 1.0 for _, r in pairs):
+            raise AssertionError(f"seen-ratio: ratios {pairs}")
+        (_, _, _, t_prev), (_, x, m, t_last) = calls
+        if list(x.shape) != [batch, 1296] or m.shape[1] != cfg.hash_bits:
+            raise AssertionError(f"seen-ratio: kernel B input {list(x.shape)} x {list(m.shape)}")
+        err = expect_simhash_equal(x, m, f"seen-ratio ply {plies - 1}, {batch} rows")
+        near_zero_rows = int(((x.double() @ m.double()).abs() <= 1e-4).any(-1).sum())
+        at_seen = {**time_simhash(x, m), "max_abs_err": err, "near_zero_rows": near_zero_rows}
+        del calls, x
+        # Where a ply's time goes: the games of ply 8 (8 random plies) under the profiler.
+        eng = engine(cfg.n, half_komi=cfg.half_komi)
+        ply8 = profile_device(lambda: random_planes(eng, 8, **random_draws(
+            seen_ratio.ply_generator(123, 8, dev), batch, eng.num_actions)), calls=1)
+
+        # Batch `small`, the card against the CPU from the same draws.
+        a = eng.num_actions
+
+        def draws_on(where):
+            def draws(ply):
+                g = torch.Generator().manual_seed(1000 + ply)
+                d = {"sym": torch.randint(0, 8, (small,), generator=g), "pair": torch.randint(0, 2, (small,), generator=g),
+                     "gumbel": gumbel_noise(g, (ply, small, a))}
+                return {k: v.to(where) for k, v in d.items()}
+            return draws
+
+        ratios = {}
+        for where in ("cpu", dev):
+            bundle = ckpt.load_checkpoint(model, new_agent(cfg, seed=0, device=where))
+            with contextlib.redirect_stdout(io.StringIO()):
+                ratios[str(where)] = seen_ratio.run(bundle, cfg, max_ply=plies, batch=small, device=where,
+                                                    draws=draws_on(where))
+            del bundle
+        if ratios[str(dev)] != ratios["cpu"]:
+            raise AssertionError(f"seen-ratio at batch {small}: card {ratios[str(dev)]}, CPU {ratios['cpu']}")
+    torch.cuda.empty_cache()
+    return {"net": f"net6_simhash ({net_label(cfg)})", "batch": batch, "plies": plies, "ratios": pairs,
+            "seconds": seconds, "seconds_last_ply": t_last - t_prev, "seconds_per_ply": seconds / plies,
+            "peak_memory_gb": peak_gb, "launches": launches, "at_seen_ratio": at_seen,
+            "ply_8_games_profile": ply8, f"card_equals_cpu_at_batch_{small}": True}
+
+
+def run_graph_and_books(dev, out) -> dict:
+    """14e: ``drivers/graph.py`` (HTML and CSV; ``--png`` needs matplotlib,
+    which raises naming the flag where it is missing) and
+    ``drivers/visualize_replay_buffer.py`` on phases 9 and 11's replays,
+    stepped on ``dev``.  The two streams come from different seeds and
+    drivers, so each must hold positions the other lacks and their curves
+    must differ: otherwise the set differences and the second curve would
+    go untested."""
+    import importlib.util
+
+    from takzero_torch.drivers import graph, visualize_replay_buffer
+
+    files = [str(Path(out, f"{tag}_replays.txt")) for tag in ("loop", "cosched")]
+    on_dev = ["--n", "4", "--device", str(dev)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        curves = graph.main(files + on_dev + ["--point-rate", "256", "--out", str(Path(out, "graph.html")),
+                                              "--csv", str(Path(out, "graph.csv"))])
+        books = visualize_replay_buffer.main(files + on_dev + ["--out-prefix", str(Path(out, "positions"))])
+    if not all(0.0 <= y <= 1.0 for pts in curves.values() for _, y in pts) or len(curves) != 2:
+        raise AssertionError(f"graph: curves {curves}")
+    if curves["loop"] == curves["cosched"]:
+        raise AssertionError(f"graph: phases 9 and 11's replays give one curve {curves['loop']}")
+    if len(books) != 3 or not all(Path(p).exists() for p in books):
+        raise AssertionError(f"visualize_replay_buffer: books {books}")
+    if not all(count > 0 for p, count in books.items() if Path(p).name.startswith("positions_only_")):
+        raise AssertionError(f"visualize_replay_buffer: a stream holds no position the other lacks: {books}")
+    png = "written"
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            graph.main(files[:1] + on_dev + ["--out", str(Path(out, "g.html")), "--png", str(Path(out, "g.png"))])
+        except ImportError as exc:
+            if "--png" not in str(exc):
+                raise
+            png = f"refused without matplotlib: {exc}"
+        else:
+            raise AssertionError("graph --png ran without matplotlib")
+    return {"points": {k: len(v) for k, v in curves.items()}, "last_points": {k: v[-1] for k, v in curves.items()},
+            "books": books, "png": png, "seconds": time.perf_counter() - t0}
+
+
+def run_visualize_search(dev, out, visits: int = 200) -> dict:
+    """14f: ``drivers/visualize_search.py``.  First a small RND net's tree
+    (16x2, 8x1 RND towers, float32) on the card against the CPU: trees
+    equal, floats within 1e-4 (phase 3c).  Then net4_rnd at full width,
+    ``visits`` visits, betas 0 and 1: each SVG written, the root visits
+    equal the visits, kernel A once per simulation at f32[1, 944] with
+    k=64 and B never; A's recorded inputs equal ``topk_plain``'s at k = 1,
+    64 and 944, and A timed at k=64 beside ``torch.topk``."""
+    import torch
+
+    from takzero_torch.drivers import visualize_search
+    from takzero_torch.eee.harness import random_draws
+    from takzero_torch.models.agent import make_net_evaluate, new_agent
+    from takzero_torch.models.network import NetConfig
+    from takzero_torch.ops import topk
+    from takzero_torch.search.core import make_simulate
+    from takzero_torch.search.openings import make_new_opening
+    from takzero_torch.tak.engine import engine
+
+    eng = engine(4, half_komi=4)
+    small = NetConfig(n=4, half_komi=4, filters=16, blocks=2, novelty="rnd", rnd_filters=8, rnd_blocks=1,
+                      compute_dtype=torch.float32)
+    draws = random_draws(torch.Generator().manual_seed(3), 1, eng.num_actions)
+    gumbel = torch.stack([draws["gumbel"](i) for i in range(3)])
+    trees = {}
+    for where in ("cpu", dev):
+        agent = new_agent(small, seed=0, device=where)
+        evaluate = make_net_evaluate(small, eng, device=where)
+        simulate = make_simulate(eng, lambda e: evaluate(agent, e), max_depth=64)
+        envs = make_new_opening(eng, random_steps=3)(draws["sym"].to(where), draws["pair"].to(where), gumbel.to(where))
+        trees[str(where)] = visualize_search.search_tree(eng, simulate, envs, 1.0, 48, 64)
+    expect_trees_close(trees[str(dev)], trees["cpu"], "visualize_search, small net", 1e-4)
+
+    calls = []
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with recording_kernel_inputs(calls), contextlib.redirect_stdout(io.StringIO()):
+        drawn = visualize_search.main(["--net", "net4_rnd", "--visits", str(visits), "--betas", "0,1",
+                                       "--out-dir", str(out), "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _expect_launches("visualize_search", 1, 2 * visits, 0)
+    for path, host in drawn:
+        if not path.stat().st_size or int(host["root_visit"]) != visits:
+            raise AssertionError(f"visualize_search: {path} ({path.stat().st_size} bytes), root visits "
+                                 f"{int(host['root_visit'])}, expected {visits}")
+    a_in = [(x, k) for w, x, k, _ in calls if w == "A"]
+    if {(tuple(x.shape), k) for x, k in a_in} != {((1, 944), 64)} or len(a_in) != 2 * visits:
+        raise AssertionError(f"visualize_search: kernel A inputs {sorted({(tuple(x.shape), k) for x, k in a_in})}")
+    for i in (0, visits, 2 * visits - 1):
+        for k in (1, 64, 944):
+            expect_topk_equal(a_in[i][0], k, f"visualize_search simulation {i}, k={k}")
+    x, k = a_in[-1]
+    b, a = x.shape
+    at = dict(shape=[b, a], k=k, max_abs_err=0.0, kernel_ms=device_ms(lambda: topk.exact_top_k_unsorted(x, k))[0],
+              call_ms=call_ms(lambda: topk.exact_top_k_unsorted(x, k)),
+              plain_ms=device_ms(lambda: topk.topk_plain(x, k))[0],
+              library_ms=device_ms(lambda: torch.topk(x, k, sorted=False))[0],
+              legal_entries=int((x > NEG / 2).sum()))
+    at["bound_ms"], at["bound_by"] = bound_ms(b * a * 4 + b * k * 8, b * a)
+    return {"net": "net4_rnd (16x256 bf16, two 32x4 RND towers)", "visits": visits, "betas": [0.0, 1.0],
+            "small_net_card_vs_cpu": "trees equal (floats 1e-4)", "seconds": seconds,
+            "simulations_per_s": 2 * visits / seconds, "launches": launches,
+            "svg_bytes": [p.stat().st_size for p, _ in drawn], "at_1x944": at}
+
+
+def run_eee_and_visualizers(dev, keep) -> dict:
+    """14: the EEE experiments and the visualizers on phases 9 and 11's
+    files (kept in ``keep``)."""
+    import torch
+
+    from takzero_torch.parallel import coordinator as co
+
+    t_phase = time.perf_counter()
+    keep = Path(keep)
+    replays, targets = keep / "eee_replays.txt", keep / "eee_targets.txt"
+    replays.write_text("".join((keep / f"{t}_{co.REPLAYS}").read_text(encoding="utf-8") for t in ("loop", "cosched")),
+                       encoding="utf-8")
+    # Selfplay targets first, reanalyze targets second: the experiment's two
+    # forced-uses pools are the file's halves (ensemble.rs:43-54).
+    targets.write_text("".join((keep / f"{t}_{name}").read_text(encoding="utf-8")
+                               for name in (co.TARGETS_SELFPLAY, co.TARGETS_REANALYZE) for t in ("loop", "cosched")),
+                       encoding="utf-8")
+    res = {"phase": "EEE and the visualizers", "card": card_line()}
+    t0 = time.perf_counter()
+    res["generalization"] = run_eee_generalization(dev, replays, keep)
+    res["rnd"] = run_eee_rnd(dev, replays, keep)
+    res["ensemble_small_card_vs_cpu"] = check_ensemble_step_card_vs_cpu(dev, targets)
+    res["ensemble"] = run_eee_ensemble(dev, targets, keep)
+    res["eee_seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    res["seen_ratio"] = run_seen_ratio(dev, keep)
+    res["graph_and_books"] = run_graph_and_books(dev, keep)
+    res["visualize_search"] = run_visualize_search(dev, keep)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(res)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2074,17 +2532,22 @@ def main() -> int:
     check_learner_small_reference(dev)
     learner_launches = run_learner_main_path(dev)
     at_4x4 = check_kernels_4x4(gen, dev)
-    loop = run_actor_loop(dev)
-    serve = run_serve_path(dev, gen)
-    cosched = run_coscheduled(dev)
-    tiny = run_tiny_run(dev)
-    t13 = time.perf_counter()
-    check_novelty_small_reference(dev)
-    rnd_loop = run_actor_loop(dev, net="net4_rnd")  # 13b: phase 9's loop and cuts
-    lcg = run_lcghash_drivers(dev)
-    topk_5x5 = check_topk_5x5(gen, dev)
-    ens_net5 = run_ensemble_and_net5(dev)
-    log({"phase": "novelty variants done", "seconds": time.perf_counter() - t13})
+    keep = tempfile.mkdtemp(prefix="takzero_smoke_files_")  # phases 9 and 11's files, for phase 14
+    try:
+        loop = run_actor_loop(dev, keep=keep)
+        serve = run_serve_path(dev, gen)
+        cosched = run_coscheduled(dev, keep=keep)
+        tiny = run_tiny_run(dev)
+        t13 = time.perf_counter()
+        check_novelty_small_reference(dev)
+        rnd_loop = run_actor_loop(dev, net="net4_rnd")  # 13b: phase 9's loop and cuts
+        lcg = run_lcghash_drivers(dev)
+        topk_5x5 = check_topk_5x5(gen, dev)
+        ens_net5 = run_ensemble_and_net5(dev)
+        log({"phase": "novelty variants done", "seconds": time.perf_counter() - t13})
+        eee = run_eee_and_visualizers(dev, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
 
     kernels = []
     for name, out, source, replaces in (
@@ -2122,6 +2585,18 @@ def main() -> int:
                                                      "bound_ms", "bound_by")}
     kernels[0]["at_8x8"] = {k: topk_8x8[k] for k in ("shape", "k", "kernel_ms", "call_ms", "plain_ms", "library_ms",
                                                      "bound_ms", "bound_by", "adversarial_rows_kernel_ms")}
+    # Phase 14, each launch count read from the counters in this run.
+    gen_steps, plies, sims = (eee["generalization"]["simhash"]["steps"], eee["seen_ratio"]["plies"],
+                              2 * eee["visualize_search"]["visits"])
+    for entry in kernels:
+        name = entry["name"]
+        entry["eee_generalization_launches_per_step"] = eee["generalization"]["simhash"]["launches"][name] / gen_steps
+        entry["eee_generalization_lcghash_launches"] = eee["generalization"]["lcghash"]["launches"][name]
+        entry["seen_ratio_launches_per_ply"] = eee["seen_ratio"]["launches"][name] / plies
+        entry["visualize_search_launches_per_simulation"] = eee["visualize_search"]["launches"][name] / sims
+    kernels[0]["at_1x944"] = eee["visualize_search"]["at_1x944"]
+    kernels[1]["at_seen_ratio"] = eee["seen_ratio"]["at_seen_ratio"]
+    kernels[1]["at_eee_generalization"] = eee["generalization"]["at_eee_generalization"]
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())
     log({"kernels": kernels})

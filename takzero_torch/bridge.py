@@ -79,6 +79,16 @@ def _rnd_tower(tower, p: dict, s: dict) -> None:
 
 
 @torch.no_grad()
+def rnd_pair_from_jax(params: dict, batch_stats: dict, cfg: NetConfig, device=None) -> RndPair:
+    """The port's :class:`RndPair` holding a JAX ``RndPair``'s variables
+    (``params`` and ``batch_stats`` as numpy arrays), in eval mode."""
+    rnd = RndPair(cfg)
+    for name in ("predictor", "target"):
+        _rnd_tower(getattr(rnd, name), params[name], batch_stats.get(name, {}))
+    return rnd.to(resolve_device(device)).eval()
+
+
+@torch.no_grad()
 def from_jax_bundle(bundle_np: dict, cfg: NetConfig, device=None) -> dict:
     """The port's agent bundle holding the JAX bundle's weights and novelty state."""
     dev = resolve_device(device)
@@ -101,11 +111,7 @@ def from_jax_bundle(bundle_np: dict, cfg: NetConfig, device=None) -> dict:
         key = "hash_matrix" if cfg.novelty == "simhash" else "hash_scale"
         bundle[key] = _t(bundle_np[key]).to(dev)
     elif cfg.novelty == "rnd":
-        rnd = RndPair(cfg)
-        p, s = bundle_np["rnd_params"], bundle_np["rnd_batch_stats"]
-        for name in ("predictor", "target"):
-            _rnd_tower(getattr(rnd, name), p[name], s.get(name, {}))
-        bundle["rnd"] = rnd.to(dev).eval()
+        bundle["rnd"] = rnd_pair_from_jax(bundle_np["rnd_params"], bundle_np["rnd_batch_stats"], cfg, dev)
         bundle["rnd_min"] = _t(bundle_np["rnd_min"]).to(dev)
         bundle["rnd_max"] = _t(bundle_np["rnd_max"]).to(dev)
     elif cfg.novelty == "ensemble":

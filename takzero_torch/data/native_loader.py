@@ -22,14 +22,14 @@ import functools
 import numpy as np
 import torch
 
-from ..data.target import RESULTS
+from ..data.target import RESULTS, Replay
 from ..device import resolve_device
 from ..ops.repr import scatter_policy, state_to_planes
 from ..tak.moves import ptn_to_action
 from ..tak.state import TakState, initial_state_batch
 from ..tak.symmetry import action_maps, transform_state
 from ..tak.engine import engine
-from ..tak.tps import tps_fields
+from ..tak.tps import states_to_tps, tps_fields
 from ..train.learner import Batch
 
 
@@ -156,16 +156,28 @@ def parse_replay_positions(n: int, half_komi: int, reversible_limit: int, text: 
     """
     eng = engine(n, half_komi=half_komi, reversible_limit=reversible_limit)
     parsed = [p for p in (_parse_replay(n, raw) for raw in text.split("\n")) if p is not None]
+    states = explode_replays(eng, parsed, torch.device("cpu"))
+    return states, states.ply.numpy()
+
+
+def explode_replays(eng, parsed, device: torch.device) -> TakState:
+    """The position before every action of each replay, on ``device``.
+
+    ``parsed`` lists (start TPS fields, actions) pairs; replays without an
+    action give nothing.  Positions come in replay order, then in ply
+    order; all replays are stepped together, one batched ``eng.step`` per
+    ply.
+    """
     parsed = [p for p in parsed if p[1]]
     if not parsed:
-        return initial_state_batch(n, 0), np.zeros(0, np.int32)
+        return initial_state_batch(eng.n, 0).map(lambda x: x.to(device))
     lengths = np.array([len(a) for _, a in parsed])
     plies = int(lengths.max())
-    state = TakState(**{k: torch.from_numpy(np.stack([f[k] for f, _ in parsed])) for k in TakState._fields})
+    state = TakState(**{k: torch.from_numpy(np.stack([f[k] for f, _ in parsed])).to(device) for k in TakState._fields})
     actions = np.zeros((len(parsed), plies), np.int64)
     for i, (_, acts) in enumerate(parsed):
         actions[i, : len(acts)] = acts
-    actions = torch.from_numpy(actions)
+    actions = torch.from_numpy(actions).to(device)
     snapshots = []  # TakState[L] before ply j, for j < plies
     for j in range(plies):
         snapshots.append(state)
@@ -174,9 +186,41 @@ def parse_replay_positions(n: int, half_komi: int, reversible_limit: int, text: 
     stacked = TakState(*(torch.stack(x) for x in zip(*snapshots)))  # [plies, L, ...]
     line = np.repeat(np.arange(len(parsed)), lengths)
     ply = np.concatenate([np.arange(k) for k in lengths])
-    li, pi = torch.from_numpy(line), torch.from_numpy(ply)
-    states = stacked.map(lambda x: x[pi, li])
-    return states, states.ply.numpy()
+    li, pi = torch.from_numpy(line).to(device), torch.from_numpy(ply).to(device)
+    return stacked.map(lambda x: x[pi, li])
+
+
+def read_replay_blocks(eng, path, device: torch.device, block: int = 4096):
+    """Yield (states TakState[P] on ``device``, lengths int[L]) per block of
+    up to ``block`` non-empty lines of a replay file, in file order: the
+    position before every action of each of the block's L replays
+    (:func:`explode_replays`, stepped on ``device``) and how many belong to
+    each line.  A line that is not a replay raises, as ``Replay.from_line``
+    does."""
+    with open(path, "r", encoding="utf-8") as f:
+        lines = (line.strip() for line in f)
+        while True:
+            chunk = []
+            for line in lines:
+                if line:
+                    chunk.append(Replay.from_line(eng.n, line))
+                    if len(chunk) == block:
+                        break
+            if not chunk:
+                return
+            states = explode_replays(eng, [(tps_fields(eng.n, r.tps), r.actions) for r in chunk], device)
+            yield states, np.array([len(r.actions) for r in chunk], np.int64)
+
+
+def replay_line_tps(eng, path, device: torch.device, block: int = 4096):
+    """Yield, per non-empty line of a replay file in order, the TPS of the
+    position before each of its actions (a list, empty for a replay
+    without actions).  The replays are stepped on ``device``; only the
+    positions come back to the host for their TPS."""
+    for states, lengths in read_replay_blocks(eng, path, device, block):
+        tps = states_to_tps(eng.n, states.map(lambda x: x.cpu()))
+        for start, stop in zip(np.cumsum(lengths) - lengths, np.cumsum(lengths)):
+            yield tps[start:stop]
 
 
 def augment_states(n: int, states: TakState, syms: np.ndarray) -> TakState:

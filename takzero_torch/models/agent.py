@@ -77,12 +77,7 @@ def new_agent(cfg: NetConfig, seed: int = 0, device=None) -> dict:
     net = init_network(cfg, seed).to(dev)
     bundle = {"net": net, "folded": fold_inference_params(cfg, net)}
     if cfg.novelty in HASHED:
-        bundle["hash_bits"] = bitset_init(cfg.hash_bits, dev)
-        if cfg.novelty == "simhash":
-            bundle["hash_matrix"] = simhash_matrix(cfg, seed).to(dev)
-        else:
-            gen = torch.Generator().manual_seed(seed ^ 0x1C6)
-            bundle["hash_scale"] = torch.randn((input_channels(cfg.n), cfg.n, cfg.n), generator=gen).to(dev)
+        bundle.update(new_hash_state(cfg, seed, dev))
     elif cfg.novelty == "rnd":
         bundle["rnd"] = init_rnd(cfg, seed + 1).to(dev)
         bundle["rnd_min"] = torch.zeros((), device=dev)
@@ -92,6 +87,22 @@ def new_agent(cfg: NetConfig, seed: int = 0, device=None) -> dict:
     elif cfg.novelty != "none":
         raise ValueError(f"unknown novelty {cfg.novelty!r}")
     return bundle
+
+
+def new_hash_state(cfg: NetConfig, seed: int = 0, device=None) -> dict:
+    """The hash novelty state of :func:`new_agent` alone (an empty seen-set
+    and the SimHash matrix or the LCG scale drawn from ``seed``), for users
+    of the hash without a network (EEE's generalization experiment)."""
+    dev = resolve_device(device)
+    state = {"hash_bits": bitset_init(cfg.hash_bits, dev)}
+    if cfg.novelty == "simhash":
+        state["hash_matrix"] = simhash_matrix(cfg, seed).to(dev)
+    elif cfg.novelty == "lcghash":
+        gen = torch.Generator().manual_seed(seed ^ 0x1C6)
+        state["hash_scale"] = torch.randn((input_channels(cfg.n), cfg.n, cfg.n), generator=gen).to(dev)
+    else:
+        raise ValueError(f"new_hash_state: {cfg.novelty!r} is not a hash novelty")
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -252,3 +263,18 @@ def make_net_evaluate(cfg: NetConfig, eng: TakEngine, device=None):
         return policy, value, variance
 
     return net_evaluate
+
+
+@torch.no_grad()
+def core_only(cfg: NetConfig, bundle: dict, planes: torch.Tensor) -> torch.Tensor:
+    """The residual tower's output in eval mode (running statistics), in
+    ``compute_dtype`` [B, F, N, N]: JAX's ``_core_only``, the unfolded
+    module's numerics (EEE's ensemble reads its heads on it)."""
+    core = bundle["net"].core
+    mode = core.training
+    core.eval()
+    try:
+        with conv_precision(cfg.compute_dtype):
+            return core(planes)
+    finally:
+        core.train(mode)

@@ -199,6 +199,10 @@ class TakNet(nn.Module):
 
     Built in eval mode; ``net.train()`` switches BatchNorm to batch
     statistics (and running-statistics updates) for the learner.
+    ``with_core=True`` appends the residual tower's output
+    (``compute_dtype`` [B, F, N, N]) in the same mode, so that extra heads
+    (EEE's ensemble) read this forward's core instead of running a second
+    tower (JAX's ``TakNet.__call__(with_core=True)``).
     """
 
     def __init__(self, cfg: NetConfig):
@@ -210,10 +214,11 @@ class TakNet(nn.Module):
         self.ube = ScalarHead(cfg, tanh=False)
         self.eval()
 
-    def forward(self, planes):
+    def forward(self, planes, with_core: bool = False):
         core = self.core(planes)
         policy = flax_conv(self.policy, core, self.cfg.compute_dtype).flatten(1).float()
-        return policy, self.value(core), self.ube(core.detach())
+        out = (policy, self.value(core), self.ube(core.detach()))
+        return out + (core,) if with_core else out
 
 
 class RndTower(nn.Module):

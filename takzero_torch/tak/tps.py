@@ -66,6 +66,12 @@ def state_to_tps(n: int, state: TakState) -> str:
     return f"{'/'.join(rows)} {to_move} {move_number}"
 
 
+def states_to_tps(n: int, states: TakState) -> list[str]:
+    """The TPS of each position of a batched CPU state."""
+    fields = [np.asarray(x) for x in states]
+    return [state_to_tps(n, TakState(*(f[i] for f in fields))) for i in range(states.ply.shape[0])]
+
+
 _SQUARE_RE = re.compile(r"x(\d?)|([12]+)([SC]?)")
 
 

@@ -1,7 +1,10 @@
-"""Pre-training targets from uniformly random games.
+"""Target batches from ``Target`` objects, and pre-training targets from
+uniformly random games.
 
-Counterpart of ``random_pretraining_targets`` and ``_host_opening`` in
-``takzero_tpu/train/data.py`` (learn/src/main.rs:425-483: random games,
+Counterpart of ``make_batch`` (learn/src/main.rs:330-373: symmetry
+augmentation and the input, mask and policy tensors; EEE's ensemble
+experiment builds its batches with it), ``random_pretraining_targets`` and
+``_host_opening`` in ``takzero_tpu/train/data.py`` (learn/src/main.rs:425-483: random games,
 uniform policy over the legal moves, discounted terminal value, maximum
 variance UBE).  The JAX package plays its games on its C++ oracle; the
 port plays them on its own engine, a batch of games at a time on the
@@ -14,13 +17,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..data.native_loader import augment_states
 from ..data.target import Target
 from ..device import resolve_device
+from ..ops.repr import scatter_policy, state_to_planes
 from ..search import eval as ev
 from ..search.openings import make_new_opening
 from ..tak.engine import TakEngine
 from ..tak.state import TakState, where_state
-from ..tak.tps import state_to_tps
+from ..tak.symmetry import action_maps
+from ..tak.tps import state_to_tps, tps_fields
+from .learner import Batch
 
 MAX_PLIES = 400
 GAMES = 64  # games played at a time
@@ -50,6 +57,34 @@ def _host_opening(eng: TakEngine, rng: np.random.Generator, games: int, device) 
 def stack_states(states) -> TakState:
     """Stack single positions (e.g. from ``tps_to_state``) into a batch."""
     return TakState(*(torch.stack(xs) for xs in zip(*states)))
+
+
+def make_batch(eng: TakEngine, targets: list[Target], rng: np.random.Generator, augment: bool = True,
+               return_states: bool = False, device=None):
+    """A training :class:`Batch` of ``targets`` on ``device`` (default
+    ``cuda``; raises without CUDA), each under a symmetry drawn by one
+    ``rng.integers(0, 8)`` per target in target order, as JAX's
+    ``make_batch`` draws them (``augment=False``: the identity, no draw).
+    ``return_states`` also returns the augmented batched states on
+    ``device``."""
+    dev = resolve_device(device)
+    n = eng.n
+    syms = np.array([int(rng.integers(0, 8)) if augment else 0 for _ in targets], np.int64)
+    fields = [tps_fields(n, t.tps) for t in targets]
+    states = TakState(**{k: torch.from_numpy(np.stack([f[k] for f in fields])) for k in TakState._fields})
+    states = augment_states(n, states, syms).map(lambda x: x.to(dev))
+    rows = np.repeat(np.arange(len(targets)), [len(t.policy) for t in targets])
+    acts = np.array([a for t in targets for a, _ in t.policy], np.int64)
+    probs = np.array([p for t in targets for _, p in t.policy], np.float32)
+    policy, mask = scatter_policy(len(targets), eng.num_actions, rows, action_maps(n)[syms[rows], acts], probs, dev)
+    batch = Batch(
+        planes=state_to_planes(eng, states),
+        policy=policy,
+        mask=mask,
+        value=torch.tensor([t.value for t in targets], dtype=torch.float32, device=dev),
+        ube=torch.tensor([t.ube for t in targets], dtype=torch.float32, device=dev),
+    )
+    return (batch, states) if return_states else batch
 
 
 def _random_actions(legal: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -57,7 +57,11 @@ def loss_fn(cfg: NetConfig, net: TakNet, batch: Batch, train_ube: bool):
     Call it with ``net`` in train mode: the forward then normalises with
     batch statistics and updates the running ones in place.
     """
-    policy, value, ube = net(batch.planes)
+    return losses_of(batch, *net(batch.planes), train_ube)
+
+
+def losses_of(batch: Batch, policy, value, ube, train_ube: bool):
+    """(loss, metrics) of the heads' outputs on ``batch`` (see :func:`loss_fn`)."""
     b = policy.shape[0]
     masked = torch.where(batch.mask, policy, F32_MIN)
     logp = torch.log_softmax(masked, dim=-1)

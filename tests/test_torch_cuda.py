@@ -242,3 +242,30 @@ def test_planes_and_lcghash_card_equal_cpu(cuda, n):
     cfg = NetConfig(n=n, novelty="lcghash", hash_bits=32)
     scale = torch.randn(input_channels(n), n, n, generator=gen)
     assert torch.equal(lcghash_indices(cfg, scale.to(cuda), got).cpu(), lcghash_indices(cfg, scale, want))
+
+
+def test_simhash_kernel_at_seen_ratio_rows(cuda):
+    """Kernel B at seen-ratio's shape, 65,536 rows of random 6x6 positions'
+    planes (side to move zeroed) times M f32[1296, 32]; and at EEE
+    generalization's [256, 448] x [448, 26]."""
+    from takzero_torch.eee.harness import random_plane_batch
+    from takzero_torch.models.network import NetConfig, simhash_matrix
+    from takzero_torch.ops.repr import input_channels
+    from takzero_torch.tak.engine import engine
+
+    for n, rows, bits, ply in ((6, 65_536, 32, 12), (4, 256, 26, 6)):
+        planes = random_plane_batch(engine(n, half_komi=4), torch.Generator(cuda).manual_seed(n), ply, rows)
+        planes[:, input_channels(n) - 2] = 0.0
+        m = simhash_matrix(NetConfig(n=n, hash_bits=bits), seed=1).to(cuda)
+        _expect_simhash_equal(planes.reshape(rows, -1).contiguous(), m)
+
+
+@pytest.mark.parametrize("k", [1, 64, 944])
+def test_topk_kernel_at_one_4x4_tree(cuda, k):
+    """Kernel A at visualize_search's single tree, f32[1, 944]: masked
+    logits and an adversarial row."""
+    gen = torch.Generator().manual_seed(k)
+    masked = torch.where(torch.rand(1, 944, generator=gen) < 0.2, torch.randn(1, 944, generator=gen), NEG)
+    _expect_topk_equal(masked.contiguous().to(cuda), k)
+    for row in (2, 4, 6):
+        _expect_topk_equal(_adversarial_rows(944, gen)[16 * row : 16 * row + 1].contiguous().to(cuda), k)

@@ -25,9 +25,17 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "takzero_tpu"))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
+
+# The modules of the EEE experiments and the visualizers (PR 8).
+EEE_AND_VISUALIZERS = [
+    "takzero_torch.eee.harness", "takzero_torch.eee.rnd", "takzero_torch.eee.generalization",
+    "takzero_torch.eee.ensemble", "takzero_torch.eee.seen_ratio", "takzero_torch.drivers.eee",
+    "takzero_torch.drivers.graph", "takzero_torch.drivers.visualize_replay_buffer",
+    "takzero_torch.drivers.visualize_search", "takzero_torch.tools.logs", "takzero_torch.tools.plots",
+]
 
 
 def test_port_imports_no_jax():
@@ -36,7 +44,9 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 56, out.stdout  # every module of the port was imported
+    assert count >= 71, out.stdout  # every module of the port was imported
+    names = out.stdout.split("] ", 1)[1].split()
+    assert set(EEE_AND_VISUALIZERS) <= set(names)
 
 
 def test_entry_points_refuse_devices():
@@ -117,4 +127,24 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         tiny_run.main(["--out", str(tmp_path / "tiny_run.json")])
     assert not any(tmp_path.iterdir())
+    # The EEE experiments and the search visualizer.
+    from takzero_torch.drivers import eee, visualize_search
+
+    replays = tmp_path / "replays.txt"
+    replays.write_text('[TPS "x3/x3/x3 1 1"] a1 c3\n')
+    for argv in (["rnd", "--replays", str(replays)], ["generalization", "--replays", str(replays)],
+                 ["ensemble", "--targets", str(replays)], ["seen-ratio", "--model", str(replays)]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            eee.main(argv + ["--out", str(tmp_path / "eee.csv")] if argv[0] != "seen-ratio" else argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        visualize_search.main(["--net", "tiny3", "--out-dir", str(tmp_path)])
+    # The replay visualizers step the replays on the card too.
+    from takzero_torch.drivers import graph, visualize_replay_buffer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graph.main([str(replays), "--n", "3", "--out", str(tmp_path / "graph.html")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        visualize_replay_buffer.main([str(replays), str(replays), "--n", "3",
+                                      "--out-prefix", str(tmp_path / "positions")])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["replays.txt"]
     assert resolve_device("cpu") == torch.device("cpu")

@@ -167,3 +167,19 @@ def tall_states(n, batch, seed):
         ply=np.full((batch,), 10, np.int32),
         reversible=np.zeros((batch,), np.int32),
     )
+
+
+def random_game_draws(key, ply: int, batch: int, num_actions: int) -> dict:
+    """The draws of JAX's ``make_new_opening(eng, ply)(key, batch)`` as the
+    port's ``new_opening`` takes them: ``sym``, ``pair`` and the Gumbel
+    noise f32[ply, B, A] of the random plies (``fold_in(k_steps, i)``)."""
+    k_sym, k_pair, k_steps = jax.random.split(key, 3)
+    gumbel = np.stack([
+        np.asarray(jax.random.gumbel(jax.random.fold_in(k_steps, i), (batch, num_actions)))
+        for i in range(ply)
+    ]) if ply else np.zeros((0, batch, num_actions), np.float32)
+    return dict(
+        sym=_as_t(jax.random.randint(k_sym, (batch,), 0, 8), torch.int64),
+        pair=_as_t(jax.random.randint(k_pair, (batch,), 0, 2), torch.int64),
+        gumbel=torch.from_numpy(gumbel),
+    )
