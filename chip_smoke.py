@@ -179,7 +179,29 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    root visits = visits, kernel A once a simulation, its inputs equal
    ``topk_plain``'s at f32[1, 944] with k = 1, 64 and 944, timed at k=64
    beside ``torch.topk``);
-15. a ``kernels`` JSON line: each kernel with what it replaces, its
+15. the rules oracle and the offline tools (``takzero_torch/tak/oracle.py``
+   and ``takzero_torch/tools``): (a) the build of the port's C++ copy
+   (``ops/_cpp_build.py``: the oracle library and ``tak_mcts_bench``,
+   seconds) and 2 random 6x6 games of the port's engine on the card against
+   the oracle, every legal mask, state and result equal; (b)
+   ``tools.make_puzzles`` at 6x6 (16 games, batch 64, budget 256, C=128,
+   no deep pass, 20,000 verifier nodes, target 2, 40 s): kernel A budget+1
+   launches a solve and B none, the last solve's 257 inputs equal
+   ``topk_plain``'s at k = 1, 128 and A, A timed at f32[64, 9036], k=128
+   beside ``torch.topk``, every written row re-checked on the oracle
+   (legal solution, tinue depth or avoidance depth), seconds per solve,
+   candidates and discards; (c) ``tools.elo_curve`` over two numbered
+   net4_simhash checkpoints (1 round, 4 games, budget 8, k=4; the
+   evaluation subprocess on the card), the CSV and a finite curve, and the
+   same rows from ``--skip-matches``; (d) ``tools.reuse_ab`` at
+   net6_simhash (64 games a direction, budget 24, k=8, 4 moves a side): A
+   and B budget+1 launches a half-move, the last half-move's inputs equal
+   the plain versions' (B under phase 4's rule), B timed at [64, 1296] x
+   [1296, 32], seconds per half-move; (e) ``tools.anchor --quick``: the
+   C++ bench's sims/s on one core and the float32 16x256 network's
+   positions/s on the card; (f) ``tools.openings`` at 4x4, depth 3: the
+   count, every book parsing back to its TPS;
+16. a ``kernels`` JSON line: each kernel with what it replaces, its
    launches on the move program (``launches``), on the learner
    (``learner_launches``), on the selfplay driver and on reanalyze
    (``selfplay_driver_launches``, ``reanalyze_launches``), on the serve
@@ -201,7 +223,11 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    ``eee_generalization_lcghash_launches``, ``seen_ratio_launches_per_ply``,
    ``visualize_search_launches_per_simulation``) with kernel A at
    f32[1, 944] (``at_1x944``) and kernel B at [65536, 1296] x [1296, 32]
-   (``at_seen_ratio``) and [256, 448] x [448, 26] (``at_eee_generalization``).
+   (``at_seen_ratio``) and [256, 448] x [448, 26] (``at_eee_generalization``),
+   and on phase 15 (``prover_launches_per_solve``,
+   ``reuse_ab_launches_per_half_move``) with kernel A at the prover's
+   f32[64, 9036], k=128 (``at_prover``) and kernel B at reuse_ab's
+   [64, 1296] x [1296, 32] (``at_reuse_ab``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
@@ -2490,6 +2516,288 @@ def run_eee_and_visualizers(dev, keep) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the rules oracle and the offline tools.
+# ---------------------------------------------------------------------------
+
+PROVER_BUDGET, PROVER_BATCH, PROVER_CHILDREN, VERIFY_NODES = 256, 64, 128, 20_000
+REUSE_AB_BUDGET = 24
+
+
+def time_topk(x, k: int) -> dict:
+    """Kernel A at x's shape: device and call time, the plain version's,
+    ``torch.topk``'s and the bound."""
+    import torch
+
+    from takzero_torch.ops import topk
+
+    b, a = x.shape
+    out = dict(shape=[b, a], k=k, kernel_ms=device_ms(lambda: topk.exact_top_k_unsorted(x, k))[0],
+               call_ms=call_ms(lambda: topk.exact_top_k_unsorted(x, k)),
+               plain_ms=device_ms(lambda: topk.topk_plain(x, k))[0],
+               library_ms=device_ms(lambda: torch.topk(x, k, sorted=False))[0])
+    out["bound_ms"], out["bound_by"] = bound_ms(b * a * 4 + b * k * 8, b * a)
+    return out
+
+
+def build_oracle_and_fuzz(dev, games: int = 2) -> dict:
+    """15a: build the C++ oracle library and the MCTS bench, then fuzz the
+    port's engine on the card against the oracle at 6x6: at every ply of
+    ``games`` random games the legal mask, the stepped state (every field)
+    and the result must equal the oracle's."""
+    import numpy as np
+    import torch
+
+    from takzero_torch.ops import _cpp_build
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.tak.oracle import Oracle
+    from takzero_torch.tak.state import TakState
+
+    seconds = {}
+    for name in _cpp_build.TARGETS:
+        t0 = time.perf_counter()
+        _cpp_build.build(name)
+        seconds[name] = time.perf_counter() - t0
+    eng, orc = engine(6, half_komi=4), Oracle(6, 4)
+    rng = np.random.default_rng(1240)
+    plies = 0
+    t0 = time.perf_counter()
+    for g in range(games):
+        state = eng.initial(1, dev)
+        ply = 0
+        while True:
+            lane = state.map(lambda x: x[0].cpu())
+            mask = eng.legal_mask(state)[0].cpu().numpy()
+            if not np.array_equal(mask, orc.legal_mask(lane)):
+                raise AssertionError(f"engine on the card vs oracle, game {g} ply {ply}: legal masks differ")
+            res = int(eng.game_result(state)[0])
+            if res != orc.result(lane):
+                raise AssertionError(f"engine on the card vs oracle, game {g} ply {ply}: result {res}")
+            if res != -1 or ply > 250:
+                break
+            action = int(rng.choice(np.nonzero(mask)[0]))
+            state = eng.step(state, torch.tensor([action], device=dev))
+            want = orc.step(lane, action)
+            for name, got, exp in zip(TakState._fields, state.map(lambda x: x[0].cpu()), want):
+                if not torch.equal(got.to(exp.dtype), exp):
+                    raise AssertionError(f"engine on the card vs oracle, game {g} ply {ply}: {name} differs")
+            ply += 1
+        plies += ply
+    out = {"phase": "oracle: build and engine fuzz on the card", "build_seconds": seconds, "games": games,
+           "plies": plies, "fuzz_seconds": time.perf_counter() - t0}
+    log(out)
+    return out
+
+
+def run_make_puzzles(dev, out_dir) -> dict:
+    """15b: ``tools.make_puzzles`` at 6x6, full width, depth cut: 16 games,
+    batch 64, budget 256, C=128, no deep pass, 20,000 verifier nodes,
+    target 2, 40 s.  Kernel A must launch budget + 1 times a solve (the
+    counters) and B never; the inputs of the last solve must equal
+    ``topk_plain``'s at k = 1, 128 and A; A timed at that shape beside
+    ``torch.topk``; every written row re-checks on the oracle."""
+    import sqlite3
+
+    import torch
+
+    from takzero_torch.tak.moves import ptn_to_action
+    from takzero_torch.tak.oracle import Oracle
+    from takzero_torch.tak.tps import tps_to_state
+    from takzero_torch.tools import make_puzzles as mp
+
+    db = Path(out_dir) / "puzzles_smoke.db"
+    solve_s = []
+    real = mp.make_solver
+
+    def timed_solver(*args, **kwargs):
+        solve = real(*args, **kwargs)
+
+        def timed(states):
+            t0 = time.perf_counter()
+            tree = solve(states)
+            torch.cuda.synchronize()
+            solve_s.append(time.perf_counter() - t0)
+            return tree
+
+        return timed
+
+    calls = []
+    _zero_launch_counts()
+    mp.make_solver = timed_solver
+    try:
+        with recording_kernel_inputs(calls, last=PROVER_BUDGET + 1):
+            res = mp.main(["--out", str(db), "--size", "6", "--games", "16", "--budget", str(PROVER_BUDGET),
+                           "--batch", str(PROVER_BATCH), "--max-children", str(PROVER_CHILDREN),
+                           "--deep-budget", "0", "--verify-nodes", str(VERIFY_NODES), "--target", "2",
+                           "--time-limit", "40", "--seed", "0", "--device", str(dev)])
+    finally:
+        mp.make_solver = real
+    torch.cuda.synchronize()
+    if res["solves"] < 1 or len(solve_s) != res["solves"]:
+        raise AssertionError(f"make_puzzles: {res['solves']} solves, {len(solve_s)} timed")
+    launches = _expect_launches("make_puzzles prover", PROVER_BUDGET + 1, res["solves"], b_per=0)
+    if len(calls) != PROVER_BUDGET + 1 or {(c[0], tuple(c[1].shape), c[2]) for c in calls} != {
+            ("A", (PROVER_BATCH, 9036), PROVER_CHILDREN)}:
+        raise AssertionError(f"make_puzzles: recorded {len(calls)} kernel calls of the last solve, "
+                             f"{sorted({(c[0], tuple(c[1].shape), c[2]) for c in calls})}")
+    for i, (_, x, _, _) in enumerate(calls):
+        for k in (1, PROVER_CHILDREN, x.shape[1]):
+            expect_topk_equal(x, k, f"prover call {i}, k={k}")
+    at_prover = time_topk(calls[len(calls) // 2][1], PROVER_CHILDREN)
+    del calls
+    orc = Oracle(6, 4)
+    rows = sqlite3.connect(db).execute(
+        "SELECT tps, solution, tinue_length, tinue_avoidance_length FROM puzzles").fetchall()
+    for tps, sol, tl, al in rows:
+        st = tps_to_state(6, tps)
+        if not orc.legal_mask(st)[ptn_to_action(6, sol)]:
+            raise AssertionError(f"make_puzzles: solution {sol} illegal in {tps}")
+        if tl is not None and orc.tinue_depth(st, 9, VERIFY_NODES) != tl:
+            raise AssertionError(f"make_puzzles: tinue {tps} is not depth {tl} on the oracle")
+        if al is not None and (mp.verify_avoidance(orc, st, {2, 4, 6}, VERIFY_NODES) or (None,))[0] != al:
+            raise AssertionError(f"make_puzzles: avoidance {tps} is not depth {al} on the oracle")
+    out = {"phase": "oracle: make_puzzles (device prover)", "card": card_line(),
+           "cuts": {"games": 16, "budget": PROVER_BUDGET, "batch": PROVER_BATCH, "max_children": PROVER_CHILDREN,
+                    "deep_budget": 0, "verify_nodes": VERIFY_NODES, "target": 2, "time_limit": 40},
+           "candidates": res["candidates"], "solves": res["solves"], "seconds_per_solve": solve_s,
+           "seconds": res["seconds"], "rows": len(rows), "written": res["summary"], "discards": res["discards"],
+           "launches": launches, "launches_per_solve": {k: v / res["solves"] for k, v in launches.items()},
+           "at_prover": at_prover}
+    log(out)
+    return out
+
+
+def run_elo_curve(dev, out_dir) -> dict:
+    """15c: ``tools.elo_curve`` over two numbered net4_simhash checkpoints
+    (``new_agent`` seeds 1 and 2), one round of 4 games, budget 8, k=4:
+    the evaluation subprocess runs on the card (``--device``; it raises
+    without CUDA), the CSV and the curve are written with finite points,
+    and ``--skip-matches`` re-fits to the same rows."""
+    import math
+
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.models.agent import new_agent
+    from takzero_torch.tools import elo_curve
+    from takzero_torch.utils import ckpt
+
+    d = Path(out_dir) / "elo_curve_run"
+    for seed, name in ((1, "model_0000000.ckpt"), (2, "model_0000100.ckpt")):
+        ckpt.save_checkpoint(d, name, new_agent(NET_PRESETS["net4_simhash"], seed=seed, device=dev))
+    torch.cuda.empty_cache()
+    args = ["--directory", str(d), "--net", "net4_simhash", "--device", str(dev)]
+    t0 = time.perf_counter()
+    rows = elo_curve.main(args + ["--rounds", "1", "--games", "4", "--budget", "8", "--sampled", "4",
+                                  "--rss-limit-gb", "0"])
+    seconds = time.perf_counter() - t0
+    data = json.loads((d / "elo_curve.json").read_text())
+    csv = (d / "match_results.csv").read_text().splitlines()
+    if len(csv) != 2 or data["curve"] != rows or [r["steps"] for r in rows] != [0, 100]:
+        raise AssertionError(f"elo_curve: {len(csv)} CSV rows, curve {data['curve']}")
+    if not all(math.isfinite(r["elo"]) and math.isfinite(r["stderr"]) and r["stderr"] > 0 for r in rows):
+        raise AssertionError(f"elo_curve: points not finite {rows}")
+    if elo_curve.main(args + ["--skip-matches"]) != rows:
+        raise AssertionError("elo_curve: --skip-matches re-fit to other rows")
+    out = {"phase": "oracle: elo_curve", "card": card_line(), "net": "net4_simhash (16x256 bf16, SimHash 2^32)",
+           "cuts": {"rounds": 1, "games": 4, "budget": 8, "sampled": 4}, "csv": csv, "curve": rows,
+           "seconds": seconds}
+    log(out)
+    return out
+
+
+def run_reuse_ab(dev, out_dir) -> dict:
+    """15d: ``tools.reuse_ab`` at net6_simhash on a ``new_agent``
+    checkpoint, 64 games a direction, budget 24, k=8, 4 moves a side: A and
+    B each launch budget + 1 times a half-move (the counters); the last
+    half-move's kernel inputs equal the plain versions' (B under phase 4's
+    rule); B timed at [64, 1296] x [1296, 32]."""
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.models.agent import new_agent
+    from takzero_torch.tools import reuse_ab
+    from takzero_torch.utils import ckpt
+
+    model = ckpt.save_checkpoint(out_dir, "reuse_ab.ckpt", new_agent(NET_PRESETS["net6_simhash"], seed=5,
+                                                                     device=dev))
+    torch.cuda.empty_cache()
+    calls = []
+    _zero_launch_counts()
+    with recording_kernel_inputs(calls, last=2 * (REUSE_AB_BUDGET + 1)):
+        summary = reuse_ab.main(["--ckpt", str(model), "--net", "net6_simhash", "--budget", str(REUSE_AB_BUDGET),
+                                 "--sampled", "8", "--max-moves", "4", "--device", str(dev)])
+    torch.cuda.synchronize()
+    half = summary["half_moves"]
+    launches = _expect_launches("reuse_ab", REUSE_AB_BUDGET + 1, half)
+    # 4 moves a side: no 6x6 game can end, so every direction runs 8
+    # half-moves and no game is scored.
+    if half != 16 or not 0 <= summary["games"] <= 128:
+        raise AssertionError(f"reuse_ab: {half} half-moves, {summary['games']} games scored")
+    shapes = sorted({(c[0], tuple(c[1].shape)) for c in calls})
+    if shapes != [("A", (64, 9036)), ("B", (64, 1296))] or len(calls) != 2 * (REUSE_AB_BUDGET + 1):
+        raise AssertionError(f"reuse_ab: recorded {len(calls)} calls of shapes {shapes}")
+    err = 0.0
+    for i, (kernel, x, arg, _) in enumerate(calls):
+        if kernel == "A":
+            expect_topk_equal(x, arg, f"reuse_ab call {i}")
+        else:
+            err = max(err, expect_simhash_equal(x, arg, f"reuse_ab call {i}"))
+    b_call = next(c for c in calls if c[0] == "B")
+    at_reuse_ab = {**time_simhash(b_call[1], b_call[2]), "max_abs_err": err}
+    del calls
+    out = {"phase": "oracle: reuse_ab", "card": card_line(), "net": "net6_simhash (16x256 bf16, SimHash 2^32)",
+           "summary": summary, "seconds_per_half_move": summary["wall_s"] / half, "launches": launches,
+           "launches_per_half_move": {k: v / half for k, v in launches.items()}, "at_reuse_ab": at_reuse_ab}
+    log(out)
+    return out
+
+
+def run_anchor_and_openings(dev, out_dir) -> dict:
+    """15e: ``tools.anchor --quick`` (the C++ bench's sims/s on one host
+    core, the 16x256 float32 network's positions/s on the card); 15f:
+    ``tools.openings`` at 4x4, depth 3: the count, and every book parses
+    back to its TPS."""
+    import torch
+
+    from takzero_torch.tak.tps import state_to_tps, tps_to_state
+    from takzero_torch.tools import anchor, openings
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = anchor.main(["--quick", "--device", str(dev)])
+    key = f"host_nn_positions_per_s_torch_{torch.device(dev).type}"
+    if not (res["host_search_sims_per_s_1core_no_nn"] > 0 and res[key] > 0):
+        raise AssertionError(f"anchor: {res}")
+    books = Path(out_dir) / "openings_4x4_d3.txt"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        openings.main(["--size", "4", "--depth", "3", "--out", str(books)])
+    seconds = time.perf_counter() - t0
+    lines = books.read_text().splitlines()
+    for line in lines:
+        if state_to_tps(4, tps_to_state(4, line)) != line:
+            raise AssertionError(f"openings: {line!r} does not parse back")
+    out = {"phase": "oracle: anchor and openings", "card": card_line(),
+           "anchor": {"search_sims_per_s_1core": res["host_search_sims_per_s_1core_no_nn"],
+                      "nn_positions_per_s_card": res[key], "composed_per_actor": res[
+                          "reference_on_this_host_sims_per_s_per_actor"], "host_cores": res["host_cores"]},
+           "openings_4x4_depth3": len(lines), "openings_seconds": seconds}
+    log(out)
+    return out
+
+
+def run_oracle_and_tools(dev) -> dict:
+    """15: the rules oracle and the offline tools (15a-15f)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="takzero_tools_") as d:
+        res = {"fuzz": build_oracle_and_fuzz(dev), "puzzles": run_make_puzzles(dev, d),
+               "elo_curve": run_elo_curve(dev, d), "reuse_ab": run_reuse_ab(dev, d),
+               "anchor_openings": run_anchor_and_openings(dev, d)}
+    res["seconds"] = time.perf_counter() - t0
+    log({"phase": "oracle and tools done", "seconds": res["seconds"]})
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2548,6 +2856,7 @@ def main() -> int:
         eee = run_eee_and_visualizers(dev, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+    tools = run_oracle_and_tools(dev)
 
     kernels = []
     for name, out, source, replaces in (
@@ -2597,6 +2906,13 @@ def main() -> int:
     kernels[0]["at_1x944"] = eee["visualize_search"]["at_1x944"]
     kernels[1]["at_seen_ratio"] = eee["seen_ratio"]["at_seen_ratio"]
     kernels[1]["at_eee_generalization"] = eee["generalization"]["at_eee_generalization"]
+    # Phase 15, each launch count read from the counters in this run.
+    for entry in kernels:
+        name = entry["name"]
+        entry["prover_launches_per_solve"] = tools["puzzles"]["launches_per_solve"][name]
+        entry["reuse_ab_launches_per_half_move"] = tools["reuse_ab"]["launches_per_half_move"][name]
+    kernels[0]["at_prover"] = tools["puzzles"]["at_prover"]
+    kernels[1]["at_reuse_ab"] = tools["reuse_ab"]["at_reuse_ab"]
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())
     log({"kernels": kernels})

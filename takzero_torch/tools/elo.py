@@ -4,7 +4,8 @@ The port's copy of ``takzero_tpu/tools/elo.py`` (reference python/elo.py),
 numpy only: Hunter's MM algorithm, draws counted as half a win for each
 side, a small uniform prior for connectivity, and standard errors from the
 Fisher information.  Ratings are relative (mean 0).  ``tiny_run`` reports
-its Elo through :func:`fit_elo`.
+its Elo through :func:`fit_elo`, ``tools/elo_curve.py`` through
+:func:`elo_curves`; ``main`` prints the curves of match-result CSVs.
 
 CSV line format (python/get_match_results.py):
     <white>, <white_steps>, <black>, <black_steps>, <wins>, <losses>, <draws>
@@ -117,3 +118,25 @@ def elo_curves(matches: list[MatchResult]):
         )
         curves[model] = [(s, *ratings[name(model, s)]) for s in steps]
     return curves
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("csvs", nargs="+", help="match_results CSV files")
+    parser.add_argument("--plot", help="write elo-vs-steps plot to this file")
+    args = parser.parse_args(argv)
+    matches = read_results(*args.csvs)
+    curves = elo_curves(matches)
+    for model, pts in curves.items():
+        for steps, elo, err in pts:
+            print(f"{name(model, steps):40s} {elo:+8.1f} +/- {err:5.1f}")
+    if args.plot:
+        from .plots import plot_elo
+
+        plot_elo(curves, args.plot)
+
+
+if __name__ == "__main__":
+    main()

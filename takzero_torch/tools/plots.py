@@ -1,12 +1,11 @@
-"""Matplotlib plots of the EEE experiments and the replay visualizers
-(reference python/{plot_eee,novelty_per_depth}.py).
+"""Matplotlib plots (reference python/{plot_elo_data,plot_eee,
+extract_from_logs,novelty_per_depth}.py).
 
-The port's copy of ``plot_eee``, ``plot_uniqueness`` and
-``plot_seen_ratio`` from ``takzero_tpu/tools/plots.py``.  All savefig-based
-so they run headless.  matplotlib is imported only when a figure is drawn
-(the drivers' ``--png``): where it is not installed, that raises an
-``ImportError`` naming the flag, and the CSV, HTML and SVG outputs, which
-never need it, are written all the same.
+The port's copy of ``takzero_tpu/tools/plots.py``.  All savefig-based so
+they run headless.  matplotlib is imported only when a figure is drawn
+(the drivers' ``--png``, the tools' ``--plot``): where it is not
+installed, that raises an ``ImportError`` naming the flag, and the CSV,
+JSON, HTML and SVG outputs, which never need it, are written all the same.
 """
 
 from __future__ import annotations
@@ -19,13 +18,56 @@ def _plt():
         import matplotlib
     except ImportError as exc:
         raise ImportError(
-            "--png needs matplotlib, which is not installed here; the CSV, HTML and SVG outputs do not"
+            "--png and --plot need matplotlib, which is not installed here; the CSV, JSON, HTML and SVG"
+            " outputs do not"
         ) from exc
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def plot_elo(curves: dict, out_path) -> None:
+    """Elo-vs-steps with stderr bands ({model: [(steps, elo, err)]})."""
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(10, 6))
+    for model, pts in curves.items():
+        steps = [p[0] for p in pts]
+        elo = np.array([p[1] for p in pts])
+        err = np.array([p[2] for p in pts])
+        ax.fill_between(steps, elo - err, elo + err, alpha=0.2)
+        ax.plot(steps, elo, label=model)
+    ax.legend()
+    ax.grid(True)
+    ax.set_xlabel("training steps")
+    ax.set_ylabel("relative bayes elo")
+    fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+
+
+def plot_losses(metrics: list[dict], keys, out_prefix, window: int = 128) -> None:
+    """One figure per loss key: raw + moving average."""
+    from .logs import moving_average
+
+    plt = _plt()
+    steps = [m["step"] for m in metrics]
+    for key in keys:
+        vals = [m.get(key) for m in metrics]
+        if any(v is None for v in vals):
+            continue
+        fig, ax = plt.subplots(figsize=(10, 6))
+        ax.plot(steps, vals, label="Raw", alpha=0.5)
+        ma = moving_average(vals, window)
+        if len(ma) < len(steps):
+            ax.plot(steps[window - 1 :], ma, label=f"Moving Average (n={window})")
+        ax.set_title(f"{key} During Training")
+        ax.set_xlabel("Training Steps")
+        ax.set_ylabel("Loss")
+        ax.legend()
+        ax.grid(True)
+        fig.savefig(f"{out_prefix}{key}.png", bbox_inches="tight")
+        plt.close(fig)
 
 
 def plot_eee(csv_path, out_path, window: int = 100) -> None:
@@ -79,3 +121,21 @@ def plot_seen_ratio(pairs, out_path) -> None:
     ax.grid(True)
     fig.savefig(out_path, bbox_inches="tight")
     plt.close(fig)
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("eee")
+    p.add_argument("csv")
+    p.add_argument("--out", default="eee.png")
+    p.add_argument("--window", type=int, default=100)
+    args = parser.parse_args(argv)
+    if args.cmd == "eee":
+        plot_eee(args.csv, args.out, window=args.window)
+
+
+if __name__ == "__main__":
+    main()

@@ -37,6 +37,15 @@ EEE_AND_VISUALIZERS = [
     "takzero_torch.drivers.visualize_search", "takzero_torch.tools.logs", "takzero_torch.tools.plots",
 ]
 
+# The rules oracle and the offline tools.
+ORACLE_AND_TOOLS = [
+    "takzero_torch.ops._cpp_build", "takzero_torch.tak.oracle", "takzero_torch.tools.make_puzzles",
+    "takzero_torch.tools.mine_avoidance", "takzero_torch.tools.audit_avoidance", "takzero_torch.tools.merge_puzzles",
+    "takzero_torch.tools.openings", "takzero_torch.tools.match_results", "takzero_torch.tools.elo",
+    "takzero_torch.tools.elo_curve", "takzero_torch.tools.reuse_ab", "takzero_torch.tools.action_space",
+    "takzero_torch.tools.analyze_search", "takzero_torch.tools.concat_out", "takzero_torch.tools.anchor",
+]
+
 
 def test_port_imports_no_jax():
     out = subprocess.run(
@@ -44,9 +53,10 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 71, out.stdout  # every module of the port was imported
+    assert count >= 85, out.stdout  # every module of the port was imported
     names = out.stdout.split("] ", 1)[1].split()
     assert set(EEE_AND_VISUALIZERS) <= set(names)
+    assert set(ORACLE_AND_TOOLS) <= set(names)
 
 
 def test_entry_points_refuse_devices():
@@ -146,5 +156,18 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         visualize_replay_buffer.main([str(replays), str(replays), "--n", "3",
                                       "--out-prefix", str(tmp_path / "positions")])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["replays.txt"]
+    # The tools that use the card: the puzzle prover, the Elo curve's
+    # evaluation subprocesses, the reuse A/B and the anchor's network half.
+    from takzero_torch.tools import anchor, elo_curve, make_puzzles, reuse_ab
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_puzzles.main(["--out", str(tmp_path / "p.db"), "--size", "3"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        elo_curve.main(["--directory", str(tmp_path), "--net", "tiny3"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        reuse_ab.main(["--ckpt", str(tmp_path / "m.ckpt"), "--net", "tiny3"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        anchor.main(["--quick"])
     assert sorted(p.name for p in tmp_path.iterdir()) == ["replays.txt"]
     assert resolve_device("cpu") == torch.device("cpu")
