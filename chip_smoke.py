@@ -201,7 +201,28 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    C++ bench's sims/s on one core and the float32 16x256 network's
    positions/s on the card; (f) ``tools.openings`` at 4x4, depth 3: the
    count, every book parsing back to its TPS;
-16. a ``kernels`` JSON line: each kernel with what it replaces, its
+16. multi-device (two gloo ranks share the card: the collectives' cost,
+   not scaling): (a) every collective the port uses under NCCL at world 1
+   and under gloo at world 2, rank 0's values on every rank; (b) the
+   learner through ``drivers.multihost`` (two ranks on card 0) at
+   net6_simhash, global batch 128, 10 pre-training and 10 loop steps,
+   beside ``--devices 1`` under NCCL: the first step's loss within 1e-3,
+   both ranks' weights bit-identical (a digest), the seen-set rebuilt from
+   ``hash_log.bin``, kernel B's launches read from each rank's counters
+   and held to ``simhash_plain`` on a rank's rows; (c) selfplay through
+   the launcher at net4_simhash's widths in float32, 128 games (64 a
+   rank), k=8, budget 24, until 32 games end: A and B budget + 1 launches
+   a move a rank, held to their plain versions at f32[64, 944] and [64,
+   448] on recorded inputs, each replay line once, ``replays.txt`` and
+   ``targets-selfplay.txt`` byte for byte equal to world 1's; (d) in
+   float32, reanalyze (2 steps, byte for byte), the pit fighter (32 games,
+   equal W/L/D), one puzzle batch (equal results) and 3 co-scheduled moves
+   (files byte for byte) on two ranks against world 1; (e) ``tools.multihost_scaling
+   --configs 1x1,2x1 --backend gloo``.  In bf16 cuDNN sums a convolution
+   in another order at 64 rows than at 128, so two ranks' bf16 games part
+   from one rank's: the evaluator's bf16 gap and bf16 reanalyze's first
+   difference from world 1 are logged, not gated;
+17. a ``kernels`` JSON line: each kernel with what it replaces, its
    launches on the move program (``launches``), on the learner
    (``learner_launches``), on the selfplay driver and on reanalyze
    (``selfplay_driver_launches``, ``reanalyze_launches``), on the serve
@@ -227,7 +248,10 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    and on phase 15 (``prover_launches_per_solve``,
    ``reuse_ab_launches_per_half_move``) with kernel A at the prover's
    f32[64, 9036], k=128 (``at_prover``) and kernel B at reuse_ab's
-   [64, 1296] x [1296, 32] (``at_reuse_ab``).
+   [64, 1296] x [1296, 32] (``at_reuse_ab``), and on phase 16: both at
+   selfplay's rank shapes (``at_rank_selfplay``), the launches of each
+   rank (``launches_per_rank``) and the learner's gradient all-reduce
+   (``learner_allreduce_ms``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
@@ -261,6 +285,17 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12  # tensor cores, dense
 NEG = -3.0e38
+
+
+def float32_without_tf32() -> None:
+    """The smoke's numerics: float32 matmuls and convolutions in full
+    float32 (no TF32; the bf16 convolutions still take exact TF32 inside
+    ``conv_precision``).  Spawned ranks set it too, so that every world
+    computes alike."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def log(obj) -> None:
@@ -2798,6 +2833,503 @@ def run_oracle_and_tools(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: multi-device on the card.
+# ---------------------------------------------------------------------------
+
+SP16 = {"batch": 128, "sampled": 8, "budget": 24, "games": 32}  # 16c, net4_simhash
+
+
+class _Lines(list):
+    """A logging handler's stand-in: keeps the messages of one logger."""
+
+    def __init__(self, name: str):
+        import logging
+
+        super().__init__()
+        self.logger = logging.getLogger(name)
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.append(record.getMessage())
+        self.logger.addHandler(self.handler)
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+
+def _params_digest(bundle) -> str:
+    """A checksum of the bits of every weight and statistic of the net."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name, t in bundle["net"].state_dict().items():
+        digest.update(name.encode())
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _rank_learn(driver_main, argv) -> dict:
+    """16b, in each rank (or in this process at world 1): ``drivers.learn``
+    with the kernel inputs recorded; returns the result, this rank's
+    launch counters, a digest of its final weights, its seen-set, the
+    first step's loss and the time of each gradient all-reduce."""
+    import torch
+
+    from takzero_torch.drivers import learn
+    from takzero_torch.parallel import multihost
+
+    held, reduce_ms, calls = {}, [], []
+    new_agent, flat = learn.new_agent, multihost.all_reduce_flat
+
+    def keep(*a, **k):
+        held["bundle"] = new_agent(*a, **k)
+        return held["bundle"]
+
+    def timed(tensors):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat(tensors)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    float32_without_tf32()
+    lines = _Lines("learn")
+    learn.new_agent, multihost.all_reduce_flat = keep, timed
+    _zero_launch_counts()
+    try:
+        with recording_kernel_inputs(calls, last=2):
+            result = driver_main(argv)
+        torch.cuda.synchronize()
+    finally:
+        learn.new_agent, multihost.all_reduce_flat = new_agent, flat
+        lines.close()
+    first = next(x for x in lines if x.startswith("pretrain 0:"))
+    bundle = held["bundle"]
+    return {"result": result, "launches": _launch_counts(), "digest": _params_digest(bundle),
+            "hash_bits": bundle["hash_bits"].cpu(), "hash_matrix": bundle["hash_matrix"].cpu(),
+            "first_loss": float(re.search(r"'loss': ([-+\d.eE]+)", first).group(1)), "reduce_ms": reduce_ms,
+            "calls": [(k, x.cpu(), None) for k, x, _, _ in calls], "rank": multihost.rank()}
+
+
+def _rank_selfplay(driver_main, argv) -> dict:
+    """16c, in each rank: ``drivers.selfplay`` in float32 with the last
+    move's kernel inputs recorded and each move's gather timed; returns the
+    result, this rank's counters and the gathers' milliseconds."""
+    import torch
+
+    from takzero_torch.parallel import multihost
+
+    calls, gather_ms = [], []
+    gather = multihost.all_gather_rows
+
+    def timed(x, dim=0):
+        torch.cuda.synchronize()  # this rank's move is done: time the collective alone
+        t0 = time.perf_counter()
+        out = gather(x, dim)
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    float32_without_tf32()
+    _zero_launch_counts()
+    multihost.all_gather_rows = timed
+    try:
+        with recording_kernel_inputs(calls, last=2 * (SP16["budget"] + 1)), float32_presets(*F32_NETS):
+            result = driver_main(argv)
+        torch.cuda.synchronize()
+    finally:
+        multihost.all_gather_rows = gather
+    result.pop("agent")
+    return {"result": result, "launches": _launch_counts(), "rank": multihost.rank(), "gather_ms": gather_ms,
+            "calls": [(k, x.cpu(), arg if k == "A" else arg.cpu()) for k, x, arg, _ in calls]}
+
+
+def _collectives(dev) -> dict:
+    """16a: each collective the port uses, with rank-dependent inputs on ``dev``."""
+    import torch
+
+    from takzero_torch.parallel import multihost
+
+    r = multihost.rank()
+    grads = [torch.full((3, 5), float(r + 1), device=dev), torch.arange(4.0, device=dev) * (r + 1)]
+    multihost.all_reduce_flat(grads)
+    return {
+        "backend": multihost.dist.get_backend(), "rank": r, "size": multihost.world_size(),
+        "scalar": multihost.broadcast_scalar(7 + r),
+        "lines": multihost.broadcast_lines([f"rank {r} line {i}" for i in range(3)] if r == 0 else None),
+        "gather": multihost.all_gather_rows(torch.arange(3, device=dev) + 10 * r).tolist(),
+        "gather_bool": multihost.all_gather_rows(torch.tensor([r == 0], device=dev)).tolist(),
+        "flat": [g.cpu().tolist() for g in grads],
+        "sum_grad": _differentiable_sum(dev, r),
+    }
+
+
+def _differentiable_sum(dev, r: int) -> list:
+    import torch
+
+    from takzero_torch.parallel import multihost
+
+    x = torch.full((2,), float(r + 1), device=dev, requires_grad=True)
+    (multihost.all_reduce_sum(x) * (r + 1)).sum().backward()
+    return x.grad.cpu().tolist()
+
+
+def _expect_collectives(outs: list, what: str) -> None:
+    n = len(outs)
+    for o in outs:
+        want = {"scalar": 7, "lines": [f"rank 0 line {i}" for i in range(3)],
+                "gather": [v + 10 * r for r in range(n) for v in range(3)],
+                "gather_bool": [r == 0 for r in range(n)],
+                "flat": [[[float(n * (n + 1) / 2)] * 5] * 3, [float(i * n * (n + 1) / 2) for i in range(4)]],
+                "sum_grad": [float(n * (n + 1) / 2)] * 2}
+        got = {k: o[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{what}: rank {o['rank']} got {got}, expected {want}")
+
+
+@contextlib.contextmanager
+def float32_presets(*nets: str):
+    """Inside, each preset of ``nets`` computes in float32 (the same widths)."""
+    import dataclasses
+
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+
+    saved = {net: NET_PRESETS[net] for net in nets}
+    for net, cfg in saved.items():
+        NET_PRESETS[net] = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    try:
+        yield
+    finally:
+        NET_PRESETS.update(saved)
+
+
+F32_NETS = ("net4_simhash", "net6_simhash")  # 16c and 16d's float32 runs
+
+
+def _rank_drivers(argv) -> dict:
+    """16a and 16d, in each of two gloo ranks on card 0: the collectives,
+    then reanalyze in bf16 and float32, and evaluation, puzzle and the
+    co-scheduled driver in float32, each with this rank's counters."""
+    import torch
+
+    from takzero_torch.drivers import coscheduled, evaluation, puzzle, reanalyze
+
+    dev = torch.device(argv["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        float32_without_tf32()
+    out = {"collectives": _collectives(dev)}
+    for name, main in (("reanalyze", reanalyze.main), ("reanalyze_f32", reanalyze.main),
+                       ("evaluation", evaluation.main), ("puzzle", puzzle.main), ("coscheduled", coscheduled.main)):
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        with float32_presets(*(() if name == "reanalyze" else F32_NETS)):
+            res = main(argv[name])
+        torch.cuda.synchronize()
+        if isinstance(res, dict):
+            res.pop("agent", None)
+        out[name] = {"result": res, "launches": _launch_counts(), "seconds": time.perf_counter() - t0}
+    return out
+
+
+def evaluator_bf16_gap(net: str, dev) -> float:
+    """The largest |difference| of the bf16 evaluator's outputs (logits,
+    value, variance) on 128 random positions evaluated at once and as two
+    halves of 64: what parts two ranks' bf16 games from one rank's on the
+    card (logged, not gated)."""
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.models.agent import make_net_evaluate, new_agent
+    from takzero_torch.tak.engine import engine
+
+    cfg = NET_PRESETS[net]
+    eng = engine(cfg.n, half_komi=cfg.half_komi)
+    envs = random_positions(eng, 128, 3 * cfg.n * cfg.n // 2, torch.Generator(device=dev).manual_seed(16), dev)
+    agent, evaluate = new_agent(cfg, seed=16, device=dev), make_net_evaluate(cfg, eng, device=dev)
+    whole = evaluate(agent, envs)
+    halves = [evaluate(agent, envs.map(lambda x: x[s])) for s in (slice(0, 64), slice(64, 128))]
+    return max(float((torch.cat([a, b]) - w).abs().max()) for w, a, b in zip(whole, *halves))
+
+
+def _expect_equal_lines(what: str, a: list, b: list) -> None:
+    if a != b:
+        raise AssertionError(f"{what}: world 2 differs from world 1 at {_first_replay_difference(a, b)}")
+
+
+def _first_replay_difference(a: list, b: list):
+    for g, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            mx, my = x.split(), y.split()
+            move = next((i for i, (p, q) in enumerate(zip(mx, my)) if p != q), min(len(mx), len(my)))
+            return {"line": g, "token": move, "world1": " ".join(mx[max(0, move - 2):move + 2])[:160],
+                    "world2": " ".join(my[max(0, move - 2):move + 2])[:160]}
+    return {"line": min(len(a), len(b)), "lengths": [len(a), len(b)]}
+
+
+def _launcher(driver: str, argv: list, hook) -> list:
+    """``drivers.multihost`` with two local gloo ranks on card 0; every
+    rank's hook result, in rank order."""
+    from takzero_torch.drivers import multihost as launcher
+
+    with tempfile.TemporaryDirectory(prefix="takzero_rdzv_") as r:
+        outs = launcher.main(["--coordinator", f"file://{r}/rendezvous", "--num-processes", "1", "--process-id", "0",
+                              "--local-ranks", "2", "--backend", "gloo", driver, "--", *argv], rank_hook=hook)
+    if [o["rank"] for o in outs] != [0, 1]:
+        raise AssertionError(f"launcher {driver}: ranks {[o['rank'] for o in outs]}")
+    return outs
+
+
+def run_multi_device(dev) -> dict:
+    """Phase 16 (a-e)."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.drivers import coscheduled, evaluation, learn, puzzle, reanalyze, selfplay
+    from takzero_torch.models.agent import new_agent
+    from takzero_torch.ops.bitset import bitset_init, bitset_set
+    from takzero_torch.parallel import coordinator as co
+    from takzero_torch.parallel import multihost
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.tools import multihost_scaling
+    from takzero_torch.train.data import random_pretraining_targets
+    from takzero_torch.utils import ckpt
+
+    from takzero_torch.parallel.mesh import backend_for
+
+    t_phase = time.perf_counter()
+    shared = f"{dev.type}:0" if dev.type == "cuda" else "cpu"  # the --device of ranks that share the card
+    out = {"phase": "multi-device", "card": card_line(),
+           "note": "two ranks share one card under gloo: the collectives' cost, not scaling"}
+
+    # (a) NCCL at world 1 in this process.
+    with tempfile.TemporaryDirectory(prefix="takzero_rdzv_") as r:
+        multihost.initialize(f"file://{r}/rendezvous", 1, 0, backend_for(dev))
+        try:
+            nccl = _collectives(dev)
+        finally:
+            multihost.dist.destroy_process_group()
+    _expect_collectives([nccl], "NCCL world 1")
+    out["nccl_world1"] = nccl["backend"]
+
+    with tempfile.TemporaryDirectory(prefix="takzero_multi_") as d:
+        d = Path(d)
+        # (b) the learner: net6_simhash, global batch 128, phase 8's
+        # pre-training cut, then 10 steps in chunks of 2.
+        cfg6 = NET_PRESETS["net6_simhash"]
+        eng6 = engine(cfg6.n, half_komi=cfg6.half_komi)
+        targets = "".join(t.to_line() + "\n" for t in random_pretraining_targets(
+            eng6, 1280, np.random.default_rng(1), device=dev))
+        argv = ["--net", "net6_simhash", "--batch-size", "128", "--no-wait", "--seed", "0", "--pretrain-targets",
+                "1280", "--pretrain-steps", "10", "--max-steps", "10", "--chunk-steps", "2",
+                "--steps-per-checkpoint", "20"]
+        runs = {}
+        for name in ("w1", "w2"):
+            (d / name).mkdir()
+            (d / name / co.TARGETS_SELFPLAY).write_text(targets)
+        t0 = time.perf_counter()
+        runs["w1"] = [_rank_learn(learn.main, ["--directory", str(d / "w1"), *argv, "--device", dev.type,
+                                              "--devices", "1"])]
+        w1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs["w2"] = _launcher("learn", ["--directory", str(d / "w2"), *argv, "--device", shared], _rank_learn)
+        w2_s = time.perf_counter() - t0
+        expect = _expected_learner_launches(10, [(10, 10, 2, 20)])
+        for name, ranks in runs.items():
+            for o in ranks:
+                if o["launches"] != {"exact_top_k_unsorted": 0, "simhash_pack": expect}:
+                    raise AssertionError(f"learner {name} rank {o['rank']}: launches {o['launches']}, "
+                                         f"expected kernel B {expect} and kernel A 0")
+            if len({o["digest"] for o in ranks}) != 1:
+                raise AssertionError(f"learner {name}: ranks end with different weights")
+            idx, _ = ckpt.read_hash_indices(d / name / ckpt.HASH_LOG, 0)
+            rebuilt = bitset_set(bitset_init(cfg6.hash_bits), torch.from_numpy(idx.astype(np.int64)))
+            if not all(torch.equal(rebuilt, o["hash_bits"]) for o in ranks):
+                raise AssertionError(f"learner {name}: the seen-set differs from the one rebuilt from hash_log.bin")
+            rows = [json.loads(x)["step"] for x in (d / name / "metrics.jsonl").read_text().splitlines()]
+            if rows != list(range(11, 21)):
+                raise AssertionError(f"learner {name}: metrics.jsonl steps {rows}")
+        l1, l2 = runs["w1"][0]["first_loss"], runs["w2"][0]["first_loss"]
+        if abs(l1 - l2) > 1e-3 * abs(l1):
+            raise AssertionError(f"learner: first step's loss {l2} on two ranks, {l1} on one")
+        rank_rows = [x for o in runs["w2"] for k, x, _ in o["calls"] if k == "B"]
+        m6 = runs["w2"][0]["hash_matrix"].to(dev)
+        err_b = max(expect_simhash_equal(x.to(dev), m6, "learner rank rows") for x in rank_rows)
+        at_learner = {**time_simhash(next(x for x in rank_rows if x.shape[0] == 64).to(dev), m6), "max_abs_err": err_b}
+        reduce2 = [ms for o in runs["w2"] for ms in o["reduce_ms"][3:]]  # after warm-up
+        reduce1 = runs["w1"][0]["reduce_ms"][3:]
+        steps1, steps2 = (runs[n][0]["result"] for n in ("w1", "w2"))
+        out["learner"] = {
+            "net": "net6_simhash (16x256 bf16, SimHash 2^32)", "global_batch": 128,
+            "world1_nccl_steps_per_s": steps1["steps"] / steps1["seconds"],
+            "world2_gloo_one_card_steps_per_s": steps2["steps"] / steps2["seconds"],
+            "allreduce_ms_world1_nccl": float(np.mean(reduce1)), "allreduce_ms_world2_gloo": float(np.mean(reduce2)),
+            "first_loss": [l1, l2], "launches_per_rank": [o["launches"] for o in runs["w2"]],
+            "kernel_b_rank_rows": sorted({tuple(x.shape) for x in rank_rows}), "at_rank_learner": at_learner,
+            "seconds": [w1_s, w2_s],
+        }
+        log({"phase": "multi-device: learner", **out["learner"]})
+
+        # (c) selfplay: net4_simhash's widths in float32, 128 games (64 a
+        # rank), until 32 finish.  In float32 the network's outputs do not
+        # depend on the rows a launch holds, so two ranks must write world
+        # 1's bytes (in bf16 they part: the gap below is logged).
+        sp = ["--net", "net4_simhash", "--seed", "3", "--batch", str(SP16["batch"]), "--budget",
+              str(SP16["budget"]), "--sampled", str(SP16["sampled"]), "--max-games", str(SP16["games"])]
+        for name in ("s1", "s2"):
+            (d / name).mkdir()
+        t0 = time.perf_counter()
+        with float32_presets(*F32_NETS):
+            one = selfplay.main(["--directory", str(d / "s1"), *sp, "--device", str(dev)])
+        s1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = _launcher("selfplay", ["--directory", str(d / "s2"), *sp, "--device", shared], _rank_selfplay)
+        s2_s = time.perf_counter() - t0
+        moves = two[0]["result"]["moves"]
+        for o in two:
+            per = {k: v / moves for k, v in o["launches"].items()}
+            if per != {"exact_top_k_unsorted": SP16["budget"] + 1, "simhash_pack": SP16["budget"] + 1}:
+                raise AssertionError(f"selfplay rank {o['rank']}: {per} launches a move, expected budget + 1")
+        replays = (d / "s2" / co.REPLAYS).read_text().splitlines()
+        if len(replays) != two[0]["result"]["replays"] or two[1]["result"]["replays"] != len(replays):
+            raise AssertionError(f"selfplay: {len(replays)} replay lines, the ranks counted "
+                                 f"{[o['result']['replays'] for o in two]}")
+        calls = [c for o in two for c in o["calls"]]
+        shapes = sorted({(k, tuple(x.shape)) for k, x, _ in calls})
+        if shapes != [("A", (64, 944)), ("B", (64, 448))]:
+            raise AssertionError(f"selfplay ranks: kernel shapes {shapes}")
+        err = 0.0
+        for i, (k, x, arg) in enumerate(calls):
+            if k == "A":
+                expect_topk_equal(x.to(dev), arg, f"selfplay rank call {i}")
+            else:
+                err = max(err, expect_simhash_equal(x.to(dev), arg.to(dev), f"selfplay rank call {i}"))
+        a_call = next(c for c in calls if c[0] == "A")
+        b_call = next(c for c in calls if c[0] == "B")
+        at_rank = {"exact_top_k_unsorted": {**time_topk(a_call[1].to(dev), a_call[2]), "max_abs_err": 0.0},
+                   "simhash_pack": {**time_simhash(b_call[1].to(dev), b_call[2].to(dev)), "max_abs_err": err}}
+        files = {}
+        for f in (co.REPLAYS, co.TARGETS_SELFPLAY):
+            a, b = ((d / n / f).read_text().splitlines() for n in ("s1", "s2"))
+            _expect_equal_lines(f"selfplay {f}", a, b)
+            files[f] = len(a)
+        out["selfplay"] = {
+            "net": "net4_simhash's widths in float32 (16x256, SimHash 2^32)", "cuts": SP16, "moves": moves,
+            "world1_moves_per_s": one["moves"] / one["seconds"],
+            "world2_moves_per_s": two[0]["result"]["moves"] / two[0]["result"]["seconds"],
+            # The packed buffer's gather a move (its wait for the slower rank included).
+            "gather_ms_per_move": [float(np.mean(o["gather_ms"])) for o in two],
+            "gather_share_of_loop": [sum(o["gather_ms"]) / 1e3 / o["result"]["seconds"] for o in two],
+            "launches_per_rank": [o["launches"] for o in two], "lines_equal_to_world1": files,
+            "bf16_evaluator_gap_64_vs_128": evaluator_bf16_gap("net4_simhash", dev), "seconds": [s1_s, s2_s],
+        }
+        log({"phase": "multi-device: selfplay", **out["selfplay"]})
+
+        # (a, d) the collectives on two gloo ranks, then the other drivers.
+        cfg4 = NET_PRESETS["net4_simhash"]
+        models = d / "models"
+        for seed, name in ((1, "model_0000001.ckpt"), (2, "model_0000002.ckpt")):
+            ckpt.save_checkpoint(models, name, new_agent(cfg4, seed=seed, device=dev))
+        model6 = ckpt.save_checkpoint(d, "model6.ckpt", new_agent(cfg6, seed=6, device=dev))
+        for name in ("r1", "r2", "f1", "f2"):
+            shutil.copytree(d / "s1", d / name)
+
+        def drivers_argv(tag: str, device: str) -> dict:
+            return {
+                "device": device,
+                "reanalyze": ["--directory", str(d / f"r{tag}"), "--net", "net4_simhash", "--seed", "4", "--batch",
+                              "128", "--budget", "24", "--sampled", "8", "--min-positions", "128", "--max-steps", "2",
+                              "--device", device],
+                "reanalyze_f32": ["--directory", str(d / f"f{tag}"), "--net", "net4_simhash", "--seed", "4",
+                                  "--batch", "128", "--budget", "24", "--sampled", "8", "--min-positions", "128",
+                                  "--max-steps", "2", "--device", device],
+                "evaluation": ["--model-path", str(models), "--net", "net4_simhash", "--rounds", "1", "--games", "32",
+                               "--budget", "8", "--sampled", "4", "--max-moves", "10", "--seed", "9",
+                               "--rss-limit-gb", "0", "--device", device],
+                "puzzle": ["--model", str(model6), "--puzzle-db", str(PUZZLE_DB), "--net", "net6_simhash",
+                           "--search-budget", "24", "--sampled-actions", "8", "--depths", "3",
+                           "--avoidance-depths", "", "--device", device],
+                "coscheduled": ["--directory", str(d / f"c{tag}"), "--net", "net4_simhash", "--seed", "5", "--batch",
+                                "128", "--budget", "24", "--sampled", "8", "--batch-size", "128", "--max-moves", "3",
+                                "--pretrain-steps", "2", "--pretrain-targets", "256", "--device", device],
+            }
+
+        t0 = time.perf_counter()
+        ranks = multihost.run_ranks(_rank_drivers, drivers_argv("2", shared), 2, "gloo")
+        d2_s = time.perf_counter() - t0
+        _expect_collectives([o["collectives"] for o in ranks], "gloo world 2 on one card")
+        t0 = time.perf_counter()
+        ref = drivers_argv("1", str(dev))
+        reanalyze.main(ref["reanalyze"])
+        with float32_presets(*F32_NETS):
+            reanalyze.main(ref["reanalyze_f32"])
+            single = {"evaluation": evaluation.main(ref["evaluation"]), "puzzle": puzzle.main(ref["puzzle"])}
+            cos1 = coscheduled.main(ref["coscheduled"])
+        d1_s = time.perf_counter() - t0
+        others = {}
+        half_moves = sum(r.half_moves for *_, r in ranks[0]["evaluation"]["result"])
+        per_rank = {"reanalyze": 2, "reanalyze_f32": 2, "evaluation": half_moves, "puzzle": 1,
+                    "coscheduled": ranks[0]["coscheduled"]["result"]["moves"]}
+        for name, count in per_rank.items():
+            for o in ranks:
+                got = o[name]["launches"]["exact_top_k_unsorted"]
+                budget = 9 if name == "evaluation" else 25
+                if got != budget * count:
+                    raise AssertionError(f"{name} rank: kernel A {got} launches, expected {budget} x {count}")
+        # bf16: logged, not gated (the games part, as in 16c's gap).
+        a, b = ((d / n / co.TARGETS_REANALYZE).read_text().splitlines() for n in ("r1", "r2"))
+        others["reanalyze_bf16"] = {"equal": a == b, "first_difference": None if a == b else
+                                    _first_replay_difference(a, b)}
+        a, b = ((d / n / co.TARGETS_REANALYZE).read_text().splitlines() for n in ("f1", "f2"))
+        _expect_equal_lines("reanalyze targets", a, b)
+        others["reanalyze_float32"] = {"equal": True, "targets": len(a)}
+        wld = [[(x, y, r.wins, r.losses, r.draws) for x, y, r in res]
+               for res in (single["evaluation"], ranks[0]["evaluation"]["result"])]
+        if wld[0] != wld[1]:
+            raise AssertionError(f"evaluation: world 2 scored {wld[1]}, world 1 {wld[0]}")
+        others["evaluation"] = wld[1]
+        got_p = [(r.category, r.attempted, r.solved, r.proven) for r in ranks[0]["puzzle"]["result"]]
+        want_p = [(r.category, r.attempted, r.solved, r.proven) for r in single["puzzle"]]
+        if got_p != want_p:
+            raise AssertionError(f"puzzle: world 2 gave {got_p}, world 1 {want_p}")
+        others["puzzle"] = got_p
+        files = sorted(p.name for p in (d / "c1").iterdir() if not p.name.endswith(".ckpt"))
+        if files != sorted(p.name for p in (d / "c2").iterdir() if not p.name.endswith(".ckpt")):
+            raise AssertionError(f"coscheduled: world 2 wrote other files than world 1's {files}")
+        for f in files:
+            a, b = ((d / n / f).read_bytes() for n in ("c1", "c2"))
+            if a != b:
+                raise AssertionError(f"coscheduled {f}: world 2 differs from world 1")
+        others["coscheduled_files"] = files
+        if ranks[0]["coscheduled"]["result"]["model_steps"] != cos1["model_steps"]:
+            raise AssertionError("coscheduled: world 2 trained another number of steps")
+        same = {"reanalyze": lambda r: r["targets"], "reanalyze_f32": lambda r: r["targets"],
+                "evaluation": lambda r: r, "puzzle": lambda r: r,
+                "coscheduled": lambda r: (r["model_steps"], r["replays"], r["targets"])}
+        for name, key in same.items():
+            if key(ranks[1][name]["result"]) != key(ranks[0][name]["result"]):
+                raise AssertionError(f"{name}: the ranks return different results")
+        out["drivers"] = {**others, "seconds": [d1_s, d2_s],
+                          "launches_per_rank": {n: [o[n]["launches"] for o in ranks] for n in per_rank}}
+        log({"phase": "multi-device: reanalyze, evaluation, puzzle, coscheduled", **out["drivers"]})
+
+    # (e) the scaling tool: 1x1 and 2x1 on this card under gloo.
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        scaling = multihost_scaling.main(["--configs", "1x1,2x1", "--backend", "gloo", "--steps", "24",
+                                          "--chunk-steps", "4", "--repeats", "1", "--targets", "512",
+                                          "--global-batch", "32"])
+    out["scaling"] = {"rows": scaling, "seconds": time.perf_counter() - t0}
+    log({"phase": "multi-device: multihost_scaling", **out["scaling"]})
+    out["at_rank_selfplay"] = at_rank
+    out["seconds"] = time.perf_counter() - t_phase
+    log({"phase": "multi-device done", "seconds": out["seconds"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2812,8 +3344,7 @@ def main() -> int:
     from takzero_torch.ops import _build
     from takzero_torch.tak.engine import engine
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    float32_without_tf32()
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -2857,6 +3388,7 @@ def main() -> int:
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     tools = run_oracle_and_tools(dev)
+    multi = run_multi_device(dev)
 
     kernels = []
     for name, out, source, replaces in (
@@ -2913,6 +3445,18 @@ def main() -> int:
         entry["reuse_ab_launches_per_half_move"] = tools["reuse_ab"]["launches_per_half_move"][name]
     kernels[0]["at_prover"] = tools["puzzles"]["at_prover"]
     kernels[1]["at_reuse_ab"] = tools["reuse_ab"]["at_reuse_ab"]
+    # Phase 16: each rank's counters (two gloo ranks on this card).
+    kernels[1]["at_rank_learner"] = multi["learner"]["at_rank_learner"]
+    for entry in kernels:
+        name = entry["name"]
+        entry["at_rank_selfplay"] = multi["at_rank_selfplay"][name]
+        entry["launches_per_rank"] = {
+            "learner": [c[name] for c in multi["learner"]["launches_per_rank"]],
+            "selfplay": [c[name] for c in multi["selfplay"]["launches_per_rank"]],
+            **{k: [c[name] for c in v] for k, v in multi["drivers"]["launches_per_rank"].items()},
+        }
+        entry["learner_allreduce_ms"] = {"world1_nccl": multi["learner"]["allreduce_ms_world1_nccl"],
+                                         "world2_gloo_one_card": multi["learner"]["allreduce_ms_world2_gloo"]}
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())
     log({"kernels": kernels})

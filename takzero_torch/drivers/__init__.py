@@ -1,5 +1,5 @@
 """Command-line drivers: ``learn``, ``selfplay``, ``reanalyze``, ``coscheduled``,
-``evaluation``, ``puzzle``, ``tei`` and ``analysis``."""
+``evaluation``, ``puzzle``, ``tei``, ``analysis`` and ``multihost``."""
 
 from __future__ import annotations
 
@@ -7,9 +7,10 @@ import os
 
 
 def refuse_unported(args) -> None:
-    """Raise for the launches the port has not got yet: several devices."""
+    """Raise for several devices in a driver that runs on one, as its JAX
+    counterpart does (``tei``, ``analysis``, ``eee``)."""
     if args.devices is not None or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
-            "takzero_torch runs on one device: --devices and multihost runs are not "
-            "ported yet (ROADMAP.md queue 1, item 5)"
+            "this driver runs on one device, as in the JAX package: --devices and multihost runs "
+            "are for learn, selfplay, reanalyze, coscheduled, evaluation and puzzle"
         )

@@ -108,7 +108,7 @@ def main(argv=None) -> None:
     parser.add_argument("--tps", default=None)
     parser.add_argument("--example", action="store_true")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    parser.add_argument("--devices", type=int, default=None, help="not ported")
+    parser.add_argument("--devices", type=int, default=None, help="refused: this driver runs on one device")
     args = parser.parse_args(argv)
     refuse_unported(args)
     dev = resolve_device(args.device)

@@ -1,15 +1,15 @@
-"""Co-scheduled actor and learner: one process, one device, no weight files.
+"""Co-scheduled actor and learner: one job, no weight files.
 
 Counterpart of ``takzero_tpu/drivers/coscheduled.py``.  The reference
 decouples one learner from its actors over a shared filesystem (actors poll
 ``model_latest.ot``; selfplay/src/main.rs:107-120, SURVEY.md §5.8).  Here
-the learner and a selfplay actor share one process and one card: the
+the learner and a selfplay actor share one process (one per rank) and its card: the
 train step updates the bundle in place, and the very next ``play_move``
 reads those tensors, with no file, no poll and no staleness.
 
 The fleet files are still written (``targets-selfplay.txt``,
 ``replays.txt``, ``replays-exploration.txt``, ``targets-reanalyze.txt``,
-``targets-initial.txt``, ``buffer_lengths.txt``), with ``hash_log.bin``
+``targets-initial.txt``, ``buffer_lengths.txt``), by rank 0 alone, with ``hash_log.bin``
 flushed before any checkpoint is written, a weights-only
 ``model_latest.ckpt`` every 100 steps and step checkpoints at
 ``--steps-per-checkpoint``, so external reanalyze, evaluation or puzzle
@@ -25,11 +25,16 @@ random-game pre-training (learn/src/main.rs:139-171) before the loop.
 As in the JAX driver, an RND net's normalization bounds are never
 refreshed here (they stay at 0 and 1; ``drivers/learn.py`` refreshes them).
 
+With ``--devices N`` the job is N ranks: each plays its rows of the game
+batch, trains on its rows of every train batch and searches its rows of
+every reanalyze batch; the gathered host buffers keep every rank's target
+buffers, and so its batches and weights, identical.
+
 Usage:
     python -m takzero_torch.drivers.coscheduled --directory DIR
         [--net net6_simhash] [--steps-per-move K] [--max-moves N]
         [--batch B] [--budget N] [--sampled K] [--reanalyze]
-        [--pretrain-steps N] [--device cuda|cpu]
+        [--pretrain-steps N] [--device cuda|cpu] [--devices N]
 """
 
 from __future__ import annotations
@@ -45,16 +50,16 @@ import torch
 from ..config import NET_PRESETS, LearnConfig, ReanalyzeConfig, selfplay_preset
 from ..data.buffer import PositionBuffer, TargetBuffer
 from ..data.native_loader import make_batch_native
-from ..device import resolve_device
 from ..models.agent import HASHED, hash_indices_fresh, make_net_evaluate, new_agent
 from ..parallel import coordinator as co
+from ..parallel import mesh as pm
+from ..parallel import multihost
 from ..reanalyze import make_reanalyze_step
 from ..selfplay import SelfplayEngine, gumbel_noise, make_draws
 from ..tak.engine import engine
 from ..train.learner import make_optimizer, make_train_step
 from ..utils import ckpt
 from ..utils.flush import drain_index_pairs
-from . import refuse_unported
 from .learn import pretrain
 from .reanalyze import explode_replays, reanalyze_batch
 
@@ -95,7 +100,9 @@ def main(argv=None, draws=None) -> dict:
     parser.add_argument("--directory", required=True)
     parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--devices", type=int, default=None, help="not ported")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="split the game, train and reanalyze batches over N ranks, one per card of "
+                        "--device's type (N gloo ranks on the CPU)")
     parser.add_argument("--batch", type=int, default=None)
     parser.add_argument("--budget", type=int, default=None)
     parser.add_argument("--sampled", type=int, default=None)
@@ -125,8 +132,6 @@ def main(argv=None, draws=None) -> dict:
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
-    dev = resolve_device(args.device)
 
     net_cfg = NET_PRESETS[args.net]
     eng = engine(net_cfg.n, half_komi=net_cfg.half_komi)
@@ -137,9 +142,6 @@ def main(argv=None, draws=None) -> dict:
         pre_training_steps=args.pretrain_steps,
         initial_random_targets=args.pretrain_targets or LearnConfig.initial_random_targets,
     )
-    rng = np.random.default_rng(args.seed)
-    if draws is None:
-        draws = GeneratorDraws(torch.Generator(device=dev).manual_seed(args.seed))
 
     overrides = {"exploration": args.exploration}
     if args.batch:
@@ -149,24 +151,42 @@ def main(argv=None, draws=None) -> dict:
     if args.sampled:
         overrides["sampled_actions"] = args.sampled
     sp_cfg = selfplay_preset(args.net, **overrides)
+    world = pm.driver_world(parser, args.devices, sp_cfg.batch, log, "--batch", args.device)
+    if cfg.batch_size % world.size:
+        parser.error(f"--batch-size {cfg.batch_size} not divisible by --devices {world.size}")
+    if world.launch:
+        return pm.launch(main, argv, world, args.device)[0]
+    dev = world.device
+    coord = world.coordinator
+    if world.active:
+        log.info("multihost: rank %d/%d on %s", world.rank, world.size, dev)
+        args.seed = multihost.broadcast_scalar(args.seed % 2**31)  # rank 0's seed: one stream for every rank
+    rng = np.random.default_rng(args.seed)
+    if draws is None:
+        draws = GeneratorDraws(torch.Generator(device=dev).manual_seed(args.seed))
     evaluator = make_net_evaluate(net_cfg, eng, device=dev)
-    sp = SelfplayEngine(eng, sp_cfg, evaluator, device=dev)
+    sp = SelfplayEngine(eng, sp_cfg, evaluator, device=dev, world=world)
     sp.reset(draws.opening(sp_cfg.batch, sp_cfg.max_children))
-    train_step = make_train_step(net_cfg)
+    train_step = make_train_step(net_cfg, world)
     hash_logged = net_cfg.novelty in HASHED
 
     bundle = new_agent(net_cfg, seed=args.seed, device=dev)
-    bundle, steps = ckpt.resume_with_hash_log(args.directory, bundle, log, reconcile=hash_logged)
+    bundle, steps = ckpt.resume_with_hash_log(args.directory, bundle, log, reconcile=hash_logged and coord)
+    # Every rank has resumed before rank 0 writes the first checkpoint.
+    if world.active and multihost.broadcast_scalar(steps) != steps:
+        raise RuntimeError(f"rank {world.rank} resumed at step {steps}, rank 0 elsewhere")
     opt = make_optimizer(bundle, cfg.learning_rate)
-    if steps == 0:
+    if steps == 0 and coord:
         ckpt.save_checkpoint(args.directory, "model_0000000.ckpt", bundle)
     pretrain_steps = 0
     if steps == 0 and cfg.pre_training_steps > 0:
-        pretrain_steps, pairs = pretrain(args.directory, eng, net_cfg, cfg, bundle, opt, train_step, rng, dev)
+        pretrain_steps, pairs = pretrain(args.directory, eng, net_cfg, cfg, bundle, opt, train_step, rng, dev,
+                                         world)
         steps += pretrain_steps
-        if pairs:
-            ckpt.append_hash_indices(args.directory, drain_index_pairs(pairs))
-        ckpt.save_checkpoint(args.directory, f"model_{steps:07d}.ckpt", bundle)
+        if coord:
+            if pairs:
+                ckpt.append_hash_indices(args.directory, drain_index_pairs(pairs))
+            ckpt.save_checkpoint(args.directory, f"model_{steps:07d}.ckpt", bundle)
 
     buffer = TargetBuffer(rng)
     re_buffer = TargetBuffer(rng)
@@ -182,6 +202,8 @@ def main(argv=None, draws=None) -> dict:
         re_step = make_reanalyze_step(eng, evaluator, re_cfg.sampled_actions, re_cfg.search_budget,
                                       re_children, re_cfg.max_depth, re_cfg.ube_target_beta)
         re_positions = PositionBuffer(rng)
+        if re_cfg.batch_size % world.size:
+            parser.error(f"--reanalyze-batch {re_cfg.batch_size} not divisible by --devices {world.size}")
         replays_path = pathlib.Path(args.directory) / co.REPLAYS
         if steps > 0 and replays_path.exists():
             # On a restart the reference reanalyze re-tails replays.txt from
@@ -207,7 +229,7 @@ def main(argv=None, draws=None) -> dict:
         replay_lines = [r.to_line() for r in replays]
         for name, items in ((co.TARGETS_SELFPLAY, lines), (co.REPLAYS, replay_lines),
                             (co.REPLAYS_EXPLORATION, [r.to_line() for r in exploration_replays])):
-            if items:
+            if items and coord:
                 co.append_lines(args.directory, name, items)
         counts["targets"] += len(targets)
         counts["replays"] += len(replays)
@@ -221,10 +243,12 @@ def main(argv=None, draws=None) -> dict:
                 re_positions.extend(explode_replays(eng, replay_lines))
             if len(re_positions) >= re_cfg.min_positions and len(re_buffer) < re_cfg.max_reanalyze_buffer:
                 picks = re_positions.sample(re_cfg.batch_size)
-                found, _ = reanalyze_batch(eng, re_step, bundle, picks, draws.search(len(picks), re_children))
+                found, _ = reanalyze_batch(eng, re_step, bundle, picks, draws.search(len(picks), re_children),
+                                           world)
                 re_lines = [t.to_line() for t in found]
                 re_buffer.extend(re_lines, cfg.reanalyze_forced_uses, steps)
-                co.append_lines(args.directory, co.TARGETS_REANALYZE, re_lines)
+                if coord:
+                    co.append_lines(args.directory, co.TARGETS_REANALYZE, re_lines)
                 re_targets = len(re_lines)
                 counts["reanalyze_batches"] += 1
                 counts["reanalyze_targets"] += re_targets
@@ -248,10 +272,10 @@ def main(argv=None, draws=None) -> dict:
                 if len(buffer) < cfg.batch_size:
                     break
                 drained = buffer.drain_batch(cfg.batch_size)
-            batch = make_batch_native(eng, "\n".join(drained) + "\n", rng, device=dev)
+            batch = world.rows(make_batch_native(eng, "\n".join(drained) + "\n", rng, device=dev))
             if hash_logged:
                 # Before the step, whose hash_update sets these bits in place.
-                trained_pairs.append(hash_indices_fresh(net_cfg, bundle, batch.planes))
+                trained_pairs.append(hash_indices_fresh(net_cfg, bundle, batch.planes, world))
             metrics = train_step(bundle, opt, batch, train_ube=True)
             nonfinite += ~torch.isfinite(torch.stack(list(metrics.values()))).all()
             steps += 1
@@ -262,15 +286,17 @@ def main(argv=None, draws=None) -> dict:
             if (at_save or at_ckpt) and trained_pairs:
                 # hash_log.bin at least as fresh as any artifact written now:
                 # external pollers replay it to track the seen-set.
-                ckpt.append_hash_indices(args.directory, drain_index_pairs(trained_pairs))
+                if coord:
+                    ckpt.append_hash_indices(args.directory, drain_index_pairs(trained_pairs))
                 trained_pairs.clear()
-            if at_save:
+            if at_save and coord:
                 saver.submit(args.directory, "model_latest.ckpt", ckpt.strip_hash_bits(bundle))
-            if at_ckpt:
+            if at_ckpt and coord:
                 saver.submit(args.directory, f"model_{steps:07d}.ckpt", bundle)
         counts["train_steps"] += trained
         train_s += time.perf_counter() - t2
-        co.write_buffer_lengths(args.directory, len(buffer), len(re_buffer))
+        if coord:
+            co.write_buffer_lengths(args.directory, len(buffer), len(re_buffer))
         log.info(
             "move %d: %.2fs search (+%d train steps, %.2fs total); buffer=%d re_buffer=%d, %d targets, "
             "%d re-targets, %d replays, model step %d",
@@ -278,10 +304,11 @@ def main(argv=None, draws=None) -> dict:
             len(targets), re_targets, len(replays), steps,
         )
 
-    if trained_pairs:
-        ckpt.append_hash_indices(args.directory, drain_index_pairs(trained_pairs))
-    saver.submit(args.directory, "model_latest.ckpt", ckpt.strip_hash_bits(bundle))
-    saver.submit(args.directory, f"model_{steps:07d}.ckpt", bundle)
+    if coord:
+        if trained_pairs:
+            ckpt.append_hash_indices(args.directory, drain_index_pairs(trained_pairs))
+        saver.submit(args.directory, "model_latest.ckpt", ckpt.strip_hash_bits(bundle))
+        saver.submit(args.directory, f"model_{steps:07d}.ckpt", bundle)
     saver.drain()
     seconds = time.perf_counter() - t_loop
     log.info("coscheduled loop: %d moves, %d train steps in %.3f s (selfplay %.3f s, reanalyze %.3f s, "

@@ -33,7 +33,7 @@ log = logging.getLogger("eee")
 
 def _device_flags(p) -> None:
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    p.add_argument("--devices", type=int, default=None, help="not ported")
+    p.add_argument("--devices", type=int, default=None, help="refused: this driver runs on one device")
 
 
 def main(argv=None):

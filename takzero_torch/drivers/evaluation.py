@@ -10,7 +10,11 @@ Usage:
     python -m takzero_torch.drivers.evaluation --model-path DIR [--net ...]
         [--opening-book FILE] [--games N] [--step K] [--rounds N]
         [--pair A.ckpt,B.ckpt] [--fresh-tree] [--seed N]
-        [--rss-limit-gb G] [--device cuda|cpu]
+        [--rss-limit-gb G] [--device cuda|cpu] [--devices N]
+
+With ``--devices N`` the game batch is split over N ranks, both models
+whole on each (``evaluation.py``); the seed is rank 0's and rank 0 alone
+logs the result lines, so the Elo tooling reads each match once.
 
 Checkpoints are the port's own format (``takzero_torch/utils/ckpt.py``).
 """
@@ -27,16 +31,16 @@ import numpy as np
 import torch
 
 from ..config import NET_PRESETS
-from ..device import resolve_device
 from ..evaluation import make_compete
 from ..models.agent import make_net_evaluate, new_agent
+from ..parallel import mesh as pm
+from ..parallel import multihost
 from ..search.openings import make_new_opening
 from ..selfplay import gumbel_noise
 from ..tak.engine import engine
 from ..tak.tps import tps_to_state
 from ..train.data import stack_states
 from ..utils import ckpt, watchdog
-from . import refuse_unported
 
 log = logging.getLogger("evaluation")
 _NUMBERED = re.compile(r"model_(\d+)\.ckpt$")
@@ -84,22 +88,30 @@ def main(argv=None) -> list:
                         help="hard-exit (code 42) when host RSS exceeds this; 0 disables")
     parser.add_argument("--fresh-tree", action="store_true", help="disable cross-move tree reuse for both agents")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    parser.add_argument("--devices", type=int, default=None, help="not ported")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="split the game batch over N ranks, one per card of --device's type (N gloo "
+                        "ranks on the CPU), both models whole on each (as drivers/selfplay.py --devices)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
-    dev = resolve_device(args.device)
+    world = pm.driver_world(parser, args.devices, args.games, log, "--games", args.device)
+    if world.launch:
+        return pm.launch(main, argv, world, args.device)[0]
+    dev = world.device
+    coord = world.coordinator
     watchdog.start_rss_watchdog(args.rss_limit_gb)
 
     net_cfg = NET_PRESETS[args.net]
     eng = engine(net_cfg.n, half_komi=net_cfg.half_komi)
     seed = args.seed if args.seed is not None else int(time.time())
+    if world.active:
+        seed = multihost.broadcast_scalar(seed % 2**31)  # every rank opens the same games
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed % 2**63)
 
     compete = make_compete(
         eng, make_net_evaluate(net_cfg, eng, device=dev), args.sampled, args.budget,
         max_children=256 if net_cfg.n >= 6 else 128, tree_reuse=not args.fresh_tree,
+        world=world,
     )
 
     results = []
@@ -113,6 +125,9 @@ def main(argv=None) -> list:
             pb = pathlib.Path(args.model_path) / nb
         else:
             paths = scan_checkpoints(args.model_path, args.step)
+            if world.active:  # a learner may be writing: every rank takes rank 0's listing
+                paths = [pathlib.Path(args.model_path) / name
+                         for name in multihost.broadcast_lines([p.name for p in paths] if coord else None)]
             if len(paths) < 2:
                 if max_rounds is not None:
                     log.info("too few models (%d), stopping", len(paths))
@@ -132,9 +147,11 @@ def main(argv=None) -> list:
 
         envs = build_openings(eng, args.games, rng, dev, args.opening_book)
         r1 = compete(a, b, envs, gen, args.max_moves)
-        log.info("%s vs. %s: %s %.1f%%", pa.name, pb.name, r1, r1.win_rate() * 100)
+        if coord:
+            log.info("%s vs. %s: %s %.1f%%", pa.name, pb.name, r1, r1.win_rate() * 100)
         r2 = compete(b, a, envs, gen, args.max_moves)
-        log.info("%s vs. %s: %s %.1f%%", pb.name, pa.name, r2, r2.win_rate() * 100)
+        if coord:
+            log.info("%s vs. %s: %s %.1f%%", pb.name, pa.name, r2, r2.win_rate() * 100)
         results += [(pa.name, pb.name, r1), (pb.name, pa.name, r2)]
         del a, b
     return results

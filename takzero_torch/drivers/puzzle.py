@@ -12,6 +12,11 @@ Usage:
     python -m takzero_torch.drivers.puzzle --model CKPT --puzzle-db DB
         [--net net6_simhash] [--sampled-actions 64] [--search-budget 768]
         [--depths 3,5,7,9] [--avoidance-depths 2,4,6] [--device cuda|cpu]
+        [--devices N]
+
+With ``--devices N`` each batch of 64 puzzles is split over N ranks, the
+model whole on each; the search outputs are gathered, so every rank scores
+every puzzle, and rank 0 alone logs.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ import sqlite3
 import torch
 
 from ..config import NET_PRESETS
-from ..device import resolve_device
 from ..models.agent import make_net_evaluate, new_agent
+from ..parallel import mesh as pm
 from ..search import eval as ev
 from ..search.gumbel import make_gumbel_search
 from ..search.policy import select_best_slot, slot_action
@@ -36,7 +41,6 @@ from ..tak.moves import action_to_ptn, ptn_to_action
 from ..tak.tps import tps_to_state
 from ..train.data import stack_states
 from ..utils import ckpt
-from . import refuse_unported
 
 log = logging.getLogger("puzzle")
 BATCH_SIZE = 64
@@ -94,24 +98,25 @@ def fetch_puzzles(db_path, sql, size, depth):
     return [(tps, sol) for tps, sol in rows]
 
 
-def benchmark(eng, search_step, bundle, puzzles, win: bool, n: int, gen: torch.Generator):
+def benchmark(eng, search_step, bundle, puzzles, win: bool, n: int, gen: torch.Generator, world=None):
     """Search every puzzle, ``BATCH_SIZE`` at a time (the last batch padded
     with repeats) on ``gen``'s device; ``search_step(envs, bundle, gen) ->
-    tree``."""
+    tree``.  With ``world`` (a ``parallel.mesh.World``) each rank searches
+    its rows of a batch and the outputs are gathered."""
     result = PuzzleResult(category="tinue" if win else "avoidance")
     dev = gen.device
+    rows = (lambda x: x) if world is None else world.rows  # noqa: E731
+    gather = (lambda x: x) if world is None else world.gather  # noqa: E731
     for i in range(0, len(puzzles), BATCH_SIZE):
         chunk = puzzles[i : i + BATCH_SIZE]
         states = [tps_to_state(n, tps) for tps, _ in chunk]
         states += [states[-1]] * (BATCH_SIZE - len(states))
-        envs = stack_states(states).map(lambda x: x.to(dev))
+        envs = stack_states(states).map(lambda x: rows(x).to(dev))
         tree = search_step(envs, bundle, gen)
-        best = slot_action(tree, select_best_slot(tree)).cpu().numpy()
-        flags = tree.root_flag.cpu().numpy()
-        ch_flags = tree.child_flag[:, 0, :].cpu().numpy()
-        ch_valid = (tree.child_action[:, 0, :] >= 0).cpu().numpy()
-        root_complete = ~tree.node_incomplete[:, 0].cpu().numpy()
-        trunc = truncation_stats(tree).cpu().numpy()[: len(chunk)]
+        best, flags, ch_flags, ch_valid, root_complete, trunc = (gather(x).cpu().numpy() for x in (
+            slot_action(tree, select_best_slot(tree)), tree.root_flag, tree.child_flag[:, 0, :],
+            tree.child_action[:, 0, :] >= 0, ~tree.node_incomplete[:, 0], truncation_stats(tree)))
+        trunc = trunc[: len(chunk)]
         result.nodes += int(trunc[:, 0].sum())
         result.nodes_incomplete += int(trunc[:, 1].sum())
 
@@ -134,7 +139,7 @@ def benchmark(eng, search_step, bundle, puzzles, win: bool, n: int, gen: torch.G
                 result.proven += 1
             log.debug("tps: %s, selected: %s, solution: %s, solved: %s",
                       tps, action_to_ptn(n, int(best[g])), solution, best[g] == sol_action)
-    log.info(
+    (log.info if world is None or world.coordinator else log.debug)(
         "%s attempted=%d solved=%d proven=%d solve_rate=%.3f prove_rate=%.3f"
         " truncated_nodes=%d/%d (%.4f%%)",
         result.category, result.attempted, result.solved, result.proven,
@@ -144,16 +149,22 @@ def benchmark(eng, search_step, bundle, puzzles, win: bool, n: int, gen: torch.G
     return result
 
 
-def make_search_step(eng, net_cfg, evaluate, sampled_actions: int, search_budget: int):
+def make_search_step(eng, net_cfg, evaluate, sampled_actions: int, search_budget: int, world=None):
     """``search_step(envs, bundle, gen) -> tree``: one Gumbel search of a
-    fresh tree per puzzle, its root draw from ``gen``."""
+    fresh tree per puzzle, its root draw from ``gen``.  With ``world``,
+    ``envs`` are this rank's rows: the draw is made for the whole batch
+    and the rank keeps its rows."""
     children = 256 if net_cfg.n >= 6 else 128
+    size = 1 if world is None else world.size
 
     def search_step(envs, bundle, gen):
         search = make_gumbel_search(eng, lambda e: evaluate(bundle, e), sampled_actions, search_budget, max_depth=48)
         b = envs.ply.shape[0]
         tree = init_tree(eng, envs, search_budget + 8, children)
-        tree, _ = search(tree, gumbel_noise(gen, (b, children)), torch.zeros((b,), device=envs.ply.device))
+        gumbel = gumbel_noise(gen, (b * size, children))
+        if world is not None:
+            gumbel = world.rows(gumbel)
+        tree, _ = search(tree, gumbel, torch.zeros((b,), device=envs.ply.device))
         return tree
 
     return search_step
@@ -173,11 +184,15 @@ def main(argv=None) -> list:
     parser.add_argument("--blocks", type=int, default=None)
     parser.add_argument("--hash-bits", type=int, default=None)
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    parser.add_argument("--devices", type=int, default=None, help="not ported")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="split each puzzle batch over N ranks, one per card of --device's type (N gloo "
+                        "ranks on the CPU), the model whole on each")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
-    dev = resolve_device(args.device)
+    world = pm.driver_world(parser, args.devices, BATCH_SIZE, log, "batch", args.device)
+    if world.launch:
+        return pm.launch(main, argv, world, args.device)[0]
+    dev = world.device
 
     net_cfg = NET_PRESETS[args.net]
     overrides = {k: v for k, v in (("filters", args.filters), ("blocks", args.blocks),
@@ -188,7 +203,7 @@ def main(argv=None) -> list:
     eng = engine(n, half_komi=net_cfg.half_komi)
     bundle = ckpt.load_checkpoint_partial(args.model, new_agent(net_cfg, seed=0, device=dev))
     search_step = make_search_step(eng, net_cfg, make_net_evaluate(net_cfg, eng, device=dev),
-                                   args.sampled_actions, args.search_budget)
+                                   args.sampled_actions, args.search_budget, world)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     results = []
@@ -197,7 +212,7 @@ def main(argv=None) -> list:
         for depth in (int(d) for d in depths.split(",") if d):
             puzzles = fetch_puzzles(args.puzzle_db, sql, n, depth)
             log.info("%s %d: %d puzzles", name, depth, len(puzzles))
-            results.append(benchmark(eng, search_step, bundle, puzzles, win, n, gen))
+            results.append(benchmark(eng, search_step, bundle, puzzles, win, n, gen, world))
     return results
 
 

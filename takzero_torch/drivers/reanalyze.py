@@ -1,7 +1,7 @@
 """Reanalyze actor driver.
 
 Counterpart of ``takzero_tpu/drivers/reanalyze.py`` (the reference's
-reanalyze binary, reanalyze/src/main.rs), on one device: wait while the
+reanalyze binary, reanalyze/src/main.rs): wait while the
 learner's reanalyze buffer is over its limit, reload ``model_latest.ckpt``
 when it changed (and OR the new ``hash_log.bin`` bits into the seen-set),
 tail ``replays.txt`` and explode every new replay into all its positions,
@@ -10,7 +10,12 @@ fresh targets to ``targets-reanalyze.txt``.
 
 Usage:
     python -m takzero_torch.drivers.reanalyze --directory DIR [--net ...]
-        [--seed N] [--max-steps N] [--device cuda|cpu]
+        [--seed N] [--max-steps N] [--device cuda|cpu] [--devices N]
+
+With ``--devices N`` (or under ``drivers/multihost.py``) the position
+batch is split over N ranks: rank 0 tails the replay files and broadcasts
+the lines (every rank keeps the same position buffer and draws the same
+sample), each rank searches its rows, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -25,15 +30,15 @@ import torch
 from ..config import NET_PRESETS, ReanalyzeConfig
 from ..data import native_loader as nl
 from ..data.buffer import PositionBuffer
-from ..device import resolve_device
 from ..models.agent import make_net_evaluate, new_agent
 from ..parallel import coordinator as co
+from ..parallel import mesh as pm
+from ..parallel import multihost
 from ..reanalyze import build_targets, make_reanalyze_step
 from ..selfplay import gumbel_noise
 from ..tak.engine import engine
 from ..tak.tps import state_to_tps
 from ..utils import ckpt
-from . import refuse_unported
 
 log = logging.getLogger("reanalyze")
 
@@ -65,16 +70,23 @@ def pack_rows(n: int, states) -> np.ndarray:
     return buf
 
 
-def reanalyze_batch(eng, step, agent, picks: list, gumbel: torch.Tensor):
+def reanalyze_batch(eng, step, agent, picks: list, gumbel: torch.Tensor, world=None):
     """Search packed positions ``picks`` with fresh trees on ``gumbel``'s
     device and build their targets.  Returns ``(targets, host_seconds)``,
-    the host time spent on TPS strings and target rows."""
+    the host time spent on TPS strings and target rows.  With ``world``
+    (a ``parallel.mesh.World``) each rank searches its rows of ``picks``
+    and ``gumbel``, and the outputs are gathered: every rank gets every
+    target."""
     n = eng.n
     t0 = time.perf_counter()
     states = nl.unpack_states(n, np.stack(picks))
     tps_batch = [state_to_tps(n, states.map(lambda x: x[i])) for i in range(len(picks))]
     host_s = time.perf_counter() - t0
+    if world is not None:
+        states, gumbel = states.map(world.rows), world.rows(gumbel)
     out = step(states.map(lambda x: x.to(gumbel.device)), agent, gumbel)
+    if world is not None:
+        out = tuple(world.gather(x) for x in out)
     _, pol, child_actions, ube, value, incomplete = (x.cpu() for x in out)
     t0 = time.perf_counter()
     targets = build_targets(n, tps_batch, pol, child_actions, ube, value, incomplete=incomplete, eng=eng)
@@ -101,11 +113,11 @@ def main(argv=None) -> dict:
                         "(the reference's `exploration` feature, reanalyze:42-47,119-133)")
     parser.add_argument("--exploration-buffer", type=int, default=128_000)
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    parser.add_argument("--devices", type=int, default=None, help="not ported")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="split the position batch over N ranks, one per card of --device's type (N gloo "
+                        "ranks on the CPU), the model whole on each (as drivers/selfplay.py --devices)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
-    dev = resolve_device(args.device)
 
     cfg = ReanalyzeConfig(
         batch_size=args.batch or ReanalyzeConfig.batch_size,
@@ -113,6 +125,15 @@ def main(argv=None) -> dict:
         sampled_actions=args.sampled or ReanalyzeConfig.sampled_actions,
         min_positions=args.min_positions if args.min_positions is not None else ReanalyzeConfig.min_positions,
     )
+    world = pm.driver_world(parser, args.devices, cfg.batch_size, log, "--batch", args.device)
+    if world.launch:
+        return pm.launch(main, argv, world, args.device)[0]
+    dev = world.device
+    multi = multihost if world.active else None
+    coord = world.coordinator
+    if multi:
+        log.info("multihost: rank %d/%d on %s", world.rank, world.size, dev)
+        args.seed = multi.broadcast_scalar(args.seed % 2**31)  # rank 0's seed: one sample and draw stream
     net_cfg = NET_PRESETS[args.net]
     n = net_cfg.n
     eng = engine(n, half_komi=net_cfg.half_komi)
@@ -124,24 +145,33 @@ def main(argv=None) -> dict:
     step = make_reanalyze_step(eng, make_net_evaluate(net_cfg, eng, device=dev), cfg.sampled_actions,
                                cfg.search_budget, max_children, cfg.max_depth, cfg.ube_target_beta)
     agent = new_agent(net_cfg, seed=args.seed, device=dev)
-    poller = ckpt.LatestPoller(args.directory)
+    poller = ckpt.LatestPoller(args.directory)  # each rank polls for itself (drivers/selfplay.py)
     positions = PositionBuffer(rng)
     tail = co.Tailer(args.directory, co.REPLAYS)
     expl_positions = PositionBuffer(rng, max_len=args.exploration_buffer)
     expl_tail = co.Tailer(args.directory, co.REPLAYS_EXPLORATION)
+
+    def tail_lines(tail):
+        """New replay lines: rank 0 reads, every rank gets them."""
+        lines = tail.read_new_lines() if coord else None
+        return multi.broadcast_lines(lines) if multi else lines
+
     loops = searches = n_targets = 0
     explode_s = host_s = 0.0
     t_loop = time.perf_counter()
     while args.max_steps is None or loops < args.max_steps:
         loops += 1
-        co.wait_for_backpressure(args.directory, cfg.max_reanalyze_buffer, which=1,
-                                 max_wait=None if args.max_steps is None else 0.0)
+        max_wait = None if args.max_steps is None else 0.0
+        if multi:
+            co.coordinated_backpressure(multi, coord, args.directory, cfg.max_reanalyze_buffer, 1, max_wait)
+        else:
+            co.wait_for_backpressure(args.directory, cfg.max_reanalyze_buffer, which=1, max_wait=max_wait)
         agent, _ = poller.reload_if_changed(agent, log)
 
         t0 = time.perf_counter()
-        positions.extend(explode_replays(eng, tail.read_new_lines()))
+        positions.extend(explode_replays(eng, tail_lines(tail)))
         if args.exploration_positions:
-            expl_positions.extend(explode_replays(eng, expl_tail.read_new_lines()))
+            expl_positions.extend(explode_replays(eng, tail_lines(expl_tail)))
         explode_s += time.perf_counter() - t0
         if len(positions) < cfg.min_positions:
             if args.max_steps is not None:
@@ -159,9 +189,10 @@ def main(argv=None) -> dict:
         gumbel = gumbel_noise(gen, (len(picks), max_children))
         t1 = time.perf_counter()
         host_s += t1 - t0
-        targets, batch_host_s = reanalyze_batch(eng, step, agent, picks, gumbel)
+        targets, batch_host_s = reanalyze_batch(eng, step, agent, picks, gumbel, world)
         t2 = time.perf_counter()
-        co.append_lines(args.directory, co.TARGETS_REANALYZE, [t.to_line() for t in targets])
+        if coord:
+            co.append_lines(args.directory, co.TARGETS_REANALYZE, [t.to_line() for t in targets])
         host_s += batch_host_s + time.perf_counter() - t2
         searches += 1
         n_targets += len(targets)

@@ -1,7 +1,7 @@
 """Selfplay actor driver.
 
 Counterpart of ``takzero_tpu/drivers/selfplay.py`` (the reference's
-selfplay binary, selfplay/src/main.rs), on one device: a loop that (1)
+selfplay binary, selfplay/src/main.rs): a loop that (1)
 waits while the learner's selfplay buffer is over its limit
 (``buffer_lengths.txt``), (2) reloads ``model_latest.ckpt`` when it changed
 and ORs the new ``hash_log.bin`` bits into its seen-set, (3) plays one
@@ -11,7 +11,11 @@ targets and replays to the shared files.
 Usage:
     python -m takzero_torch.drivers.selfplay --directory DIR
         [--net net6_simhash] [--exploration] [--seed N] [--max-steps N]
-        [--max-games N] [--profile DIR] [--device cuda|cpu]
+        [--max-games N] [--profile DIR] [--device cuda|cpu] [--devices N]
+
+With ``--devices N`` (or under ``drivers/multihost.py``) the game batch is
+split over N ranks (``selfplay.py``); the seed is rank 0's, backpressure is
+rank 0's decision, and rank 0 alone writes.
 
 The text files are byte-compatible with the JAX actor's; the model files
 are the port's own format (``takzero_torch/utils/ckpt.py``).
@@ -27,14 +31,14 @@ import numpy as np
 import torch
 
 from ..config import MAX_SELFPLAY_BUFFER_LEN, NET_PRESETS, selfplay_preset
-from ..device import resolve_device
 from ..models.agent import make_net_evaluate, new_agent
 from ..parallel import coordinator as co
+from ..parallel import mesh as pm
+from ..parallel import multihost
 from ..selfplay import SelfplayEngine, dump_root_line, make_draws
 from ..tak.engine import engine
 from ..utils import ckpt
 from ..utils.profile import StepTrace
-from . import refuse_unported
 
 log = logging.getLogger("selfplay")
 
@@ -65,16 +69,12 @@ def main(argv=None) -> dict:
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="write a torch.profiler Chrome trace of moves 2-4 to DIR")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    parser.add_argument("--devices", type=int, default=None, help="not ported")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="split the game batch over N ranks, one per card of --device's type (N gloo "
+                        "ranks on the CPU), the model whole on each: the analog of the reference's actor "
+                        "fleet (SURVEY.md §2.5/§5.7)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
-    dev = resolve_device(args.device)
-
-    seed = args.seed if args.seed is not None else np.random.SeedSequence().entropy
-    seed %= 2**31
-    log.info("seed = %s", seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
 
     net_cfg = NET_PRESETS[args.net]
     eng = engine(net_cfg.n, half_komi=net_cfg.half_komi)
@@ -88,12 +88,32 @@ def main(argv=None) -> dict:
     if args.fresh_tree:
         overrides["tree_reuse"] = False
     sp_cfg = selfplay_preset(args.net, **overrides)
+    world = pm.driver_world(parser, args.devices, sp_cfg.batch, log, "--batch", args.device)
+    if world.launch:
+        return pm.launch(main, argv, world, args.device)[0]
+    dev = world.device
+    # Under a process group every rank plays its rows of the batch in
+    # lockstep and keeps the whole batch's game logs; rank 0 writes.
+    multi = multihost if world.active else None
+    coord = world.coordinator
+    if multi:
+        log.info("multihost: rank %d/%d on %s", world.rank, world.size, dev)
 
-    sp = SelfplayEngine(eng, sp_cfg, make_net_evaluate(net_cfg, eng, device=dev), device=dev)
+    seed = args.seed if args.seed is not None else np.random.SeedSequence().entropy
+    seed %= 2**31  # broadcast_scalar carries int32; one rule for every launch
+    if multi:
+        seed = multi.broadcast_scalar(seed)  # one random stream for every rank
+    log.info("seed = %s", seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    sp = SelfplayEngine(eng, sp_cfg, make_net_evaluate(net_cfg, eng, device=dev), device=dev, world=world)
     sp.reset(make_draws(gen, sp_cfg.batch, sp_cfg.max_children))
     agent = new_agent(net_cfg, seed=int(seed), device=dev)
+    # Each rank polls the model files for itself, as in the JAX driver:
+    # the ranks agree up to a one-move skew, harmless for data generation
+    # and healed at the next poll (no collective depends on it).
     poller = ckpt.LatestPoller(args.directory)
-    trace = StepTrace(args.profile, log, device=dev)
+    trace = StepTrace(args.profile if coord else None, log, device=dev)
     counts = {"targets": 0, "replays": 0, "exploration_replays": 0}
     steps, write_s = 0, 0.0
     t_loop = time.perf_counter()
@@ -103,8 +123,11 @@ def main(argv=None) -> dict:
         trace.step()
         steps += 1
         start = time.time()
-        co.wait_for_backpressure(args.directory, MAX_SELFPLAY_BUFFER_LEN, which=0,
-                                 max_wait=0.0 if test_mode else None)
+        max_wait = 0.0 if test_mode else None
+        if multi:
+            co.coordinated_backpressure(multi, coord, args.directory, MAX_SELFPLAY_BUFFER_LEN, 0, max_wait)
+        else:
+            co.wait_for_backpressure(args.directory, MAX_SELFPLAY_BUFFER_LEN, which=0, max_wait=max_wait)
         # Reload before the move is enqueued: the reload writes into the
         # live weights and seen-set.
         agent, reloaded = poller.reload_if_changed(agent, log)
@@ -113,7 +136,9 @@ def main(argv=None) -> dict:
 
         targets, replays, exploration_replays = sp.play_move(
             agent, make_draws(gen, sp_cfg.batch, sp_cfg.max_children))
-        if args.dump_search:
+        if args.dump_search and coord:
+            # The dump is game 0's root, the first of rank 0's rows: world N
+            # writes world 1's line.
             root = {k: v.cpu().numpy() for k, v in sp.last_root.items()}
             with open(args.dump_search, "a", encoding="utf-8") as f:
                 f.write(dump_root_line(net_cfg.n, root) + "\n")
@@ -129,7 +154,7 @@ def main(argv=None) -> dict:
             (co.REPLAYS_EXPLORATION, "exploration_replays", exploration_replays),
         ):
             counts[key] += len(items)
-            if not items:
+            if not items or not coord:
                 continue
             lines = [x.to_line() for x in items]
             try:

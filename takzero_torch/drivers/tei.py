@@ -356,7 +356,7 @@ def main(argv=None) -> None:
     parser.add_argument("--net", default="net6_simhash", choices=list(NET_PRESETS))
     parser.add_argument("--model", default=None)
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    parser.add_argument("--devices", type=int, default=None, help="not ported")
+    parser.add_argument("--devices", type=int, default=None, help="refused: this driver runs on one device")
     args = parser.parse_args(argv)
     refuse_unported(args)
     eng = TeiEngine(args.net, args.model, device=args.device)

@@ -54,6 +54,7 @@ def make_compete(
     max_depth: int = 48,
     tree_reuse: bool | tuple[bool, bool] = True,
     reuse_carry_cap: int = 384,
+    world=None,
 ):
     """Build ``compete(bundle_white, bundle_black, envs, gen=None,
     max_moves=200, draws=None) -> Evaluation``.
@@ -62,8 +63,11 @@ def make_compete(
     pair (carried-subtree search against fresh-tree search at equal
     budget).  ``reuse_carry_cap`` bounds the pool rows reserved for a
     carried subtree.  ``evaluator_factory(bundle, envs)`` evaluates with an
-    agent's weights.  ``compete.half_move`` is one half-move of every game
-    (the tests hold it against JAX's).
+    agent's weights.  With ``world`` (a ``parallel.mesh.World``) each rank
+    plays its rows of the games, both agents whole on every rank; the draws
+    are made for every game and the terminal kinds gathered each half-move,
+    so every rank scores every game.  ``compete.half_move`` is one
+    half-move of every game (the tests hold it against JAX's).
     """
     reuse_w, reuse_b = tree_reuse if isinstance(tree_reuse, tuple) else (tree_reuse, tree_reuse)
     any_reuse = reuse_w or reuse_b
@@ -107,9 +111,10 @@ def make_compete(
         dev = envs.ply.device
         done = np.zeros(b, bool)
         ev = Evaluation()
-        cur = envs
-        tree_w = init_tree(eng, envs, max_nodes, max_children)
-        tree_b = init_tree(eng, envs, max_nodes, max_children)
+        rows = (lambda x: x) if world is None else world.rows  # noqa: E731
+        cur = envs.map(rows)
+        tree_w = init_tree(eng, cur, max_nodes, max_children)
+        tree_b = init_tree(eng, cur, max_nodes, max_children)
         for move in range(2 * max_moves):
             if done.all():
                 break
@@ -119,7 +124,9 @@ def make_compete(
             my_reuse, opp_reuse = (reuse_w, reuse_b) if is_white else (reuse_b, reuse_w)
             gumbel = draws[move].to(dev) if draws is not None else gumbel_noise(gen, (b, max_children))
             frozen = torch.from_numpy(done).to(dev)
-            cur, tk, my, opp = half_move(cur, bundle, gumbel, frozen, my, opp, my_reuse, opp_reuse)
+            cur, tk, my, opp = half_move(cur, bundle, rows(gumbel), rows(frozen), my, opp, my_reuse, opp_reuse)
+            if world is not None:
+                tk = world.gather(tk)
             tree_w, tree_b = (my, opp) if is_white else (opp, my)
             ev.half_moves += 1
             tk = tk.cpu().numpy()

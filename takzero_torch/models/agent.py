@@ -179,19 +179,37 @@ def hash_novelty(cfg: NetConfig, bundle: dict, planes: torch.Tensor) -> torch.Te
     return torch.where(seen, 0.0, MAXIMUM_VARIANCE)
 
 
-def hash_update(cfg: NetConfig, bundle: dict, planes: torch.Tensor) -> dict:
-    """Mark the positions of ``planes`` as seen, in place; returns ``bundle``."""
-    bitset_set(bundle["hash_bits"], hash_indices(cfg, bundle, planes))
+def _global_indices(cfg: NetConfig, bundle: dict, planes: torch.Tensor, world, dim: int = 0) -> torch.Tensor:
+    """:func:`hash_indices` of this rank's ``planes`` (leading dims up to
+    ``dim`` + 1 are batch dims), gathered over ``world``'s ranks along
+    ``dim``, flattened: the indices of the global batch in its order."""
+    lead = planes.shape[: dim + 1]
+    idx = hash_indices(cfg, bundle, planes.reshape((-1,) + planes.shape[dim + 1 :])).reshape(lead)
+    if world is not None:
+        idx = world.gather(idx, dim)
+    return idx.reshape(-1)
+
+
+def hash_update(cfg: NetConfig, bundle: dict, planes: torch.Tensor, world=None) -> dict:
+    """Mark the positions of ``planes`` as seen, in place; returns ``bundle``.
+
+    With ``world`` (a ``parallel.mesh.World``) ``planes`` are this rank's
+    rows: each rank hashes its own and the indices are gathered before
+    ``bitset_set``, as JAX's ``hash_update(..., axis_name)`` does, so the
+    seen-set stays the same on every rank."""
+    bitset_set(bundle["hash_bits"], _global_indices(cfg, bundle, planes, world))
     return bundle
 
 
-def hash_indices_fresh(cfg: NetConfig, bundle: dict, planes: torch.Tensor):
+def hash_indices_fresh(cfg: NetConfig, bundle: dict, planes: torch.Tensor, world=None, dim: int = 0):
     """(int64[B] indices, bool[B] fresh): the fresh bits are not yet set in
     ``bundle["hash_bits"]``.  The learner calls this on the bundle before a
     train step (whose ``hash_update`` sets the same bits) and appends only
     the fresh indices to ``hash_log.bin``, which keeps the log bounded by
-    the number of distinct bits ever set."""
-    idx = hash_indices(cfg, bundle, planes)
+    the number of distinct bits ever set.  With ``world`` they are the
+    global batch's, gathered along ``dim`` (1 for [K, B, ...] chunks) so
+    they come in world 1's order."""
+    idx = _global_indices(cfg, bundle, planes, world, dim)
     return idx, ~bitset_query(bundle["hash_bits"], idx)
 
 

@@ -19,7 +19,8 @@ The modules follow flax's numerics, not torch's defaults, in both modes
   with eps 1e-5.  In train mode it normalises with flax's fast batch
   variance ``max(0, mean(x^2) - mean(x)^2)`` and updates the running
   statistics to ``0.9 * old + 0.1 * batch`` with that same (biased)
-  variance; in eval mode it uses the running statistics;
+  variance (under :func:`global_batch_stats`, over every rank's rows); in
+  eval mode it uses the running statistics;
 * the residual sums, the heads' flatten and their dense layers are float32;
 * a dense layer of the RND MLP (:func:`flax_dense`) is flax's
   ``nn.Dense(dtype=compute_dtype)``, rounded as a convolution is;
@@ -46,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.repr import input_channels, input_size
+from ..parallel import multihost
 from ..tak.moves import action_space
 
 MAXIMUM_VARIANCE = 4.0  # value span is [-1, 1] -> variance <= 2^2
@@ -94,16 +96,41 @@ def flax_conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Ten
     return y
 
 
+_GLOBAL_BATCH_STATS = False  # see global_batch_stats
+
+
+@contextlib.contextmanager
+def global_batch_stats(on: bool = True):
+    """Inside, train-mode BatchNorm takes its statistics over the global
+    batch of every rank of the process group, as JAX's data-parallel train
+    step does under GSPMD: the per-rank sums of x and x^2 go through a
+    differentiable all-reduce, so the backward pass carries each rank's
+    terms to every other rank.  ``on=False`` is a no-op."""
+    global _GLOBAL_BATCH_STATS
+    before = _GLOBAL_BATCH_STATS
+    _GLOBAL_BATCH_STATS = on
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH_STATS = before
+
+
 def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)``.
 
     In train mode the running statistics of ``bn`` are updated in place
-    (outside autograd), as flax's mutable ``batch_stats``.
+    (outside autograd), as flax's mutable ``batch_stats``; under
+    :func:`global_batch_stats` the batch is every rank's (equal) rows.
     """
     x = x.float()
     if train:
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if _GLOBAL_BATCH_STATS:
+            count = x.shape[0] * x.shape[2] * x.shape[3] * multihost.world_size()
+            sums = multihost.all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]))
+            mean, mean_sq = (sums / count).chunk(2)
+        else:
+            mean, mean_sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(_BN_MOMENTUM * bn.running_mean + (1 - _BN_MOMENTUM) * mean)
             bn.running_var.copy_(_BN_MOMENTUM * bn.running_var + (1 - _BN_MOMENTUM) * var)

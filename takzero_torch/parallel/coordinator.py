@@ -1,7 +1,6 @@
 """Shared-filesystem actor-learner coordination protocol.
 
-The port's own copy of the single-host parts of
-``takzero_tpu/parallel/coordinator.py``.  Processes coordinate through a
+The port's own copy of ``takzero_tpu/parallel/coordinator.py``.  Processes coordinate through a
 shared directory: append-only target and replay files tailed through
 persistent byte offsets, and a checksummed ``buffer_lengths.txt`` that the
 learner writes and the actors wait on (backpressure).  The file names and
@@ -103,6 +102,27 @@ def backpressure_hit(directory, max_buffer: int, which: int = 0) -> bool:
     reanalyze) over ``max_buffer``?  A missing or torn file is no hit."""
     lengths = read_buffer_lengths(directory)
     return lengths is not None and lengths[which] > max_buffer
+
+
+def coordinated_backpressure(multi, coord: bool, directory, max_buffer: int, which: int = 0,
+                             max_wait: float | None = None) -> None:
+    """Backpressure for the ranks of one job: polling the file on every
+    rank can diverge (a rank reads the learner's rewrite a moment later)
+    and leave one rank asleep while its peers wait in a collective of the
+    next step, so the coordinator decides and every rank follows, through
+    one short broadcast a second (never one long blocking one).
+    ``multi`` is the ``parallel.multihost`` module (``broadcast_scalar``)."""
+    waited = 0.0
+    while True:
+        clear = True
+        if coord:
+            clear = not backpressure_hit(directory, max_buffer, which)
+        if bool(multi.broadcast_scalar(clear)):
+            return
+        time.sleep(1.0)
+        waited += 1.0
+        if max_wait is not None and waited >= max_wait:
+            return
 
 
 def wait_for_backpressure(directory, max_buffer: int, which: int = 0, poll_seconds: float = 1.0,

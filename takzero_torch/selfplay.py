@@ -15,6 +15,12 @@ Randomness is drawn apart from computing: ``reset``, ``move`` and
 feed the JAX program's own draws.
 
 Trees are updated in place: the search writes into the tree it is given.
+
+Over the ranks of a data-parallel job (``world``) each rank plays its rows
+of the game batch: it takes its rows of every draw (the draws are made at
+the global shape on every rank, so world N plays world 1's games), and the
+packed buffer is gathered, one collective a move, so every rank keeps the
+whole batch's host state and game logs (JAX's ``replicate_fetch``).
 """
 
 from __future__ import annotations
@@ -120,15 +126,18 @@ class SelfplayEngine:
 
     ``evaluator_factory(agent, envs) -> (logits, value, variance)`` is the
     network evaluator (:func:`takzero_torch.models.agent.make_net_evaluate`).
+    With ``world`` (a ``parallel.mesh.World``) the device holds this rank's
+    rows of the games; ``envs`` and ``tree`` are the rank's.
     """
 
-    def __init__(self, eng: TakEngine, cfg: SelfplayConfig, evaluator_factory, device=None):
+    def __init__(self, eng: TakEngine, cfg: SelfplayConfig, evaluator_factory, device=None, world=None):
         self.eng = eng
         self.cfg = cfg
         self.device = resolve_device(device)
         self.evaluator_factory = evaluator_factory
+        self.world = world
         self._opening = make_new_opening(eng)
-        self._betas = torch.from_numpy(cfg.betas()).to(self.device)
+        self._betas = self._rows(torch.from_numpy(cfg.betas()).to(self.device))
         self.envs = None
         self.tree: Tree | None = None
         self.logs: list[GameLog] = []
@@ -141,12 +150,16 @@ class SelfplayEngine:
         # strings, policy lists, back-filled values.
         self.host_seconds = 0.0
 
+    def _rows(self, x):
+        return x if self.world is None else self.world.rows(x)
+
     def reset(self, draws: dict) -> None:
         """Fresh openings (from ``draws["open_sym"]``/``["open_pair"]``),
         fresh trees and fresh game logs."""
-        self.envs = self._opening(draws["open_sym"].to(self.device), draws["open_pair"].to(self.device))
+        envs = self._opening(draws["open_sym"].to(self.device), draws["open_pair"].to(self.device))
+        self._envs_host = _host_state(envs)
+        self.envs = envs.map(lambda x: self._rows(x).clone())
         self.tree = init_tree(self.eng, self.envs, self.cfg.max_nodes, self.cfg.max_children)
-        self._envs_host = _host_state(self.envs)
         self.logs = [GameLog(start_tps=self._tps(self._envs_host, i)) for i in range(self.cfg.batch)]
 
     def _tps(self, host: TakState, i: int) -> str:
@@ -162,10 +175,12 @@ class SelfplayEngine:
         """
         cfg, eng = self.cfg, self.eng
         envs_before = self._envs_host
-        draws = {k: v.to(self.device) for k, v in draws.items()}
+        draws = {k: self._rows(v.to(self.device)) for k, v in draws.items()}
         nxt, tree_out, packed, root = self.move(self.envs, self.tree, agent, draws)
         self.envs, self.tree = nxt, tree_out
         self.last_root = root  # on the device; read by --dump-search only
+        if self.world is not None:
+            packed = self.world.gather(packed)
         pk = packed.cpu().numpy()
         t0 = time.perf_counter()
 

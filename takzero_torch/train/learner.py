@@ -27,6 +27,17 @@ advances its one global count; the first UBE step would otherwise use
 another bias correction.  The RND target is not in the optimizer: optax
 holds it, but its gradient is zero (stop_gradient), so Adam's update of it
 is exactly zero.
+
+With ``world`` (a :class:`~takzero_torch.parallel.mesh.World` whose group
+is active) the batch is this rank's rows of the global batch, as under
+JAX's data-parallel step (``axis_name`` there): BatchNorm takes global
+statistics (``network.global_batch_stats``), each rank back-propagates
+its share of the global mean loss (its local mean over the world size, so
+the gradients summed over the ranks are the gradient of the global mean),
+the gradients are summed as one flat buffer, the metrics are averaged
+(JAX's ``pmean``) and the seen-set takes every rank's indices.  Adam then
+applies the same gradients on every rank, so the parameters stay
+bit-identical.
 """
 
 from __future__ import annotations
@@ -37,7 +48,8 @@ from typing import NamedTuple
 import torch
 
 from ..models.agent import HASHED, hash_update
-from ..models.network import MAXIMUM_VARIANCE, NetConfig, TakNet, conv_precision
+from ..models.network import MAXIMUM_VARIANCE, NetConfig, TakNet, conv_precision, global_batch_stats
+from ..parallel import multihost
 
 MINIMUM_UBE_TARGET = -10.0
 F32_MIN = torch.finfo(torch.float32).min
@@ -98,12 +110,14 @@ def make_optimizer(bundle: dict, learning_rate: float = 1e-4) -> torch.optim.Ada
     return torch.optim.Adam(trainable_of(bundle), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
-def make_train_step(cfg: NetConfig):
+def make_train_step(cfg: NetConfig, world=None):
     """Build ``train_step(bundle, opt, batch, train_ube) -> metrics``.
 
     ``metrics`` maps names to 0-d float32 tensors on the batch's device;
-    nothing waits for the device.
+    nothing waits for the device.  With an active ``world`` the batch is
+    this rank's rows (see the module's docstring).
     """
+    sharded = world is not None and world.active
 
     def train_step(bundle: dict, opt: torch.optim.Optimizer, batch: Batch, train_ube: bool) -> dict:
         net, rnd = bundle["net"], bundle.get("rnd")
@@ -111,7 +125,7 @@ def make_train_step(cfg: NetConfig):
         for mod in modules:
             mod.train()
         opt.zero_grad(set_to_none=False)
-        with conv_precision(cfg.compute_dtype):
+        with conv_precision(cfg.compute_dtype), global_batch_stats(sharded):
             loss, metrics = loss_fn(cfg, net, batch, train_ube)
             if rnd is not None:
                 # The predictor in train mode (batch statistics, running
@@ -119,30 +133,35 @@ def make_train_step(cfg: NetConfig):
                 loss_rnd = torch.mean(rnd(batch.planes))
                 loss = loss + loss_rnd
                 metrics = {**metrics, "loss": loss.detach(), "loss_rnd": loss_rnd.detach()}
-            loss.backward()
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+            (loss / world.size if sharded else loss).backward()
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if sharded:
+            multihost.all_reduce_flat([p.grad for p in params])
+            keys = sorted(metrics)
+            mean = multihost.all_reduce_mean(torch.stack([metrics[k] for k in keys]))
+            metrics = dict(zip(keys, mean.unbind()))
         opt.step()
         for mod in modules:
             mod.eval()
         bundle.pop("folded", None)
         if cfg.novelty in HASHED:
-            hash_update(cfg, bundle, batch.planes)
+            hash_update(cfg, bundle, batch.planes, world)
         return metrics
 
     return train_step
 
 
-def make_train_step_chunk(cfg: NetConfig):
+def make_train_step_chunk(cfg: NetConfig, world=None):
     """Build ``chunk_step(bundle, opt, batches, train_ube) -> metrics``.
 
     ``batches`` is a :class:`Batch` of [K, B, ...] tensors; the chunk is K
     calls of ``train_step`` in order (JAX's ``lax.scan``), and each metric
     comes back stacked to [K].
     """
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, world)
 
     def chunk_step(bundle: dict, opt: torch.optim.Optimizer, batches: Batch, train_ube: bool) -> dict:
         per_step = [

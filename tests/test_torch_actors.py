@@ -339,12 +339,21 @@ def test_actor_drivers_close_the_loop_on_the_cpu(tmp_path):
 
 
 def test_actor_drivers_refuse_what_is_not_ported(tmp_path, monkeypatch):
-    base = ["--directory", str(tmp_path), "--net", "tiny3", "--device", "cpu", "--max-steps", "1"]
+    """Both actors take --devices (ROADMAP queue 1, item 5): a batch that N
+    does not divide is a parser error, more cards than are visible raise,
+    and --devices 1 runs one rank in this process.  What they still refuse
+    is WORLD_SIZE > 1 without a process group (a torchrun launch past the
+    multihost launcher, where every process would write)."""
+    base = ["--directory", str(tmp_path), "--net", "tiny3", "--max-steps", "1", "--batch", "4"]
     for main in (selfplay.main, reanalyze.main):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            main(base + ["--devices", "2"])
+        with pytest.raises(SystemExit):
+            main(base + ["--device", "cpu", "--devices", "3"])
+        with pytest.raises(ValueError, match="--devices 2 but only 0 visible"):
+            main(base + ["--device", "cuda", "--devices", "2"])
+    assert selfplay.main(base + ["--device", "cpu", "--devices", "1"])["moves"] == 1
+    assert reanalyze.main(base + ["--device", "cpu", "--devices", "1"])["steps"] == 0  # no replays yet
     monkeypatch.setenv("WORLD_SIZE", "2")
     for main in (selfplay.main, reanalyze.main):
-        with pytest.raises(NotImplementedError, match="multihost"):
-            main(base)
+        with pytest.raises(RuntimeError, match="multihost"):
+            main(base + ["--device", "cpu"])
     assert not any(tmp_path.iterdir())

@@ -221,8 +221,8 @@ def test_coscheduled_matches_jax_through_the_first_steps(tmp_path, monkeypatch, 
 
         return step
 
-    def torch_recording(cfg):
-        inner = torch_make(cfg)
+    def torch_recording(cfg, *world):
+        inner = torch_make(cfg, *world)
 
         def step(*a, **kw):
             m = inner(*a, **kw)
@@ -285,13 +285,28 @@ def test_coscheduled_artifacts_with_pretraining_and_reanalyze(tmp_path):
 
 
 def test_coscheduled_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    base = ["--directory", str(tmp_path), "--net", "tiny3", "--device", "cpu", "--max-moves", "1"]
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        coscheduled.main(base + ["--devices", "2"])
+    """--devices runs (ROADMAP queue 1, item 5): a game or train batch that
+    N does not divide is a parser error, more cards than are visible
+    raise, --devices 1 runs one rank in this process; WORLD_SIZE > 1
+    without a process group is refused."""
+    d = tmp_path / "refused"
+    d.mkdir()
+    base = ["--directory", str(d), "--net", "tiny3", "--max-moves", "1", "--batch", "4", "--batch-size", "6"]
+    with pytest.raises(SystemExit):
+        coscheduled.main(base + ["--device", "cpu", "--devices", "3"])  # --batch 4
+    with pytest.raises(SystemExit):
+        coscheduled.main(base + ["--device", "cpu", "--devices", "4"])  # --batch-size 6
+    with pytest.raises(ValueError, match="--devices 2 but only 0 visible"):
+        coscheduled.main(base + ["--device", "cuda", "--devices", "2"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="multihost"):
-        coscheduled.main(base)
-    assert not any(tmp_path.iterdir())
+    with pytest.raises(RuntimeError, match="multihost"):
+        coscheduled.main(base + ["--device", "cpu"])
+    assert not any(d.iterdir())
+    monkeypatch.delenv("WORLD_SIZE")
+    runs = tmp_path / "runs"
+    out = coscheduled.main(["--directory", str(runs), "--net", "tiny3", "--max-moves", "1", "--batch", "4",
+                            "--device", "cpu", "--devices", "1"])
+    assert out["moves"] == 1 and (runs / "model_0000000.ckpt").exists()
 
 
 def test_train_step_drops_the_fold_and_the_next_evaluation_refolds():

@@ -47,28 +47,43 @@ ORACLE_AND_TOOLS = [
 ]
 
 
+# Multi-device: the world of ranks, the process group, the launcher and
+# its scaling tool.
+MULTI_DEVICE = [
+    "takzero_torch.parallel.mesh", "takzero_torch.parallel.multihost", "takzero_torch.drivers.multihost",
+    "takzero_torch.tools.multihost_scaling",
+]
+
+
 def test_port_imports_no_jax():
     out = subprocess.run(
         [sys.executable, "-c", _CHECK], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stdout + out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 85, out.stdout  # every module of the port was imported
+    assert count >= 89, out.stdout  # every module of the port was imported
     names = out.stdout.split("] ", 1)[1].split()
     assert set(EEE_AND_VISUALIZERS) <= set(names)
     assert set(ORACLE_AND_TOOLS) <= set(names)
+    assert set(MULTI_DEVICE) <= set(names)
 
 
 def test_entry_points_refuse_devices():
-    """--devices is not ported: every driver of the serve path raises."""
+    """The TEI engine and the analysis REPL run on one device, as in the
+    JAX package: --devices raises.  The pit fighter and the puzzle
+    benchmark take it (ROADMAP queue 1, item 5): a batch that N does not
+    divide is a parser error and more cards than are visible raise."""
     from takzero_torch.drivers import analysis, evaluation, puzzle, tei
 
-    for main, argv in (
-        (tei.main, []), (analysis.main, []), (evaluation.main, ["--model-path", "x"]),
-        (puzzle.main, ["--model", "x", "--puzzle-db", "y"]),
-    ):
+    for main in (tei.main, analysis.main):
         with pytest.raises(NotImplementedError, match="--devices"):
-            main(argv + ["--net", "tiny3", "--device", "cpu", "--devices", "2"])
+            main(["--net", "tiny3", "--device", "cpu", "--devices", "2"])
+    for main, argv in ((evaluation.main, ["--model-path", "x", "--games", "4"]),
+                       (puzzle.main, ["--model", "x", "--puzzle-db", "y"])):  # 64 puzzles a batch
+        with pytest.raises(SystemExit):
+            main(argv + ["--net", "tiny3", "--device", "cpu", "--devices", "3"])
+        with pytest.raises(ValueError, match="--devices 2 but only 0 visible"):
+            main(argv + ["--net", "tiny3", "--device", "cuda", "--devices", "2"])
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):

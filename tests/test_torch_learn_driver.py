@@ -99,12 +99,22 @@ def test_learn_driver_end_to_end(tmp_path):
 
 
 def test_learn_driver_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        _learn(tmp_path, "--devices", "2")
+    """--devices runs (ROADMAP queue 1, item 5): a batch that N does not
+    divide is a parser error, more cards than are visible raise, and
+    --devices 1 runs one rank in this process; WORLD_SIZE > 1 without a
+    process group is refused."""
+    with pytest.raises(SystemExit):
+        _learn(tmp_path, "--batch-size", "6", "--devices", "4")
+    with pytest.raises(ValueError, match="--devices 2 but only 0 visible"):
+        learn.main(["--directory", str(tmp_path), "--net", "tiny3", "--device", "cuda", "--devices", "2"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="multihost"):
+    with pytest.raises(RuntimeError, match="multihost"):
         _learn(tmp_path)
     assert not any(tmp_path.iterdir())
+    monkeypatch.delenv("WORLD_SIZE")
+    stats = _learn(tmp_path, "--batch-size", "8", "--pretrain-targets", "16", "--pretrain-steps", "2",
+                   "--max-steps", "0", "--no-wait", "--devices", "1")
+    assert stats["steps"] == 0 and (tmp_path / "model_0000002.ckpt").exists()
 
 
 def test_checkpoints_round_trip_and_refuse_flax_files(tmp_path):
