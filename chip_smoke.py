@@ -210,19 +210,36 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    both ranks' weights bit-identical (a digest), the seen-set rebuilt from
    ``hash_log.bin``, kernel B's launches read from each rank's counters
    and held to ``simhash_plain`` on a rank's rows; (c) selfplay through
-   the launcher at net4_simhash's widths in float32, 128 games (64 a
-   rank), k=8, budget 24, until 32 games end: A and B budget + 1 launches
-   a move a rank, held to their plain versions at f32[64, 944] and [64,
-   448] on recorded inputs, each replay line once, ``replays.txt`` and
-   ``targets-selfplay.txt`` byte for byte equal to world 1's; (d) in
-   float32, reanalyze (2 steps, byte for byte), the pit fighter (32 games,
-   equal W/L/D), one puzzle batch (equal results) and 3 co-scheduled moves
-   (files byte for byte) on two ranks against world 1; (e) ``tools.multihost_scaling
-   --configs 1x1,2x1 --backend gloo``.  In bf16 cuDNN sums a convolution
-   in another order at 64 rows than at 128, so two ranks' bf16 games part
-   from one rank's: the evaluator's bf16 gap and bf16 reanalyze's first
-   difference from world 1 are logged, not gated;
-17. a ``kernels`` JSON line: each kernel with what it replaces, its
+   the launcher at net4_simhash, 128 games (64 a rank), k=8, budget 24,
+   until 16 games end, in bf16 (the preset) and at the same widths in
+   float32: A and B budget + 1 launches a move a rank, held to their plain
+   versions at f32[64, 944] and [64, 448] on recorded inputs, each replay
+   line once, ``replays.txt`` and ``targets-selfplay.txt`` byte for byte
+   equal to world 1's in both; the ranks evaluate their rows at the global
+   batch's shape (``World.at_global_shape``, since cuDNN picks a bf16
+   convolution's order of summation by the batch's shape), and the padded
+   bf16 evaluator must give the whole batch's outputs bit for bit; (d)
+   reanalyze (2 steps) in bf16 and in float32, byte for byte, and in
+   float32 the pit fighter (32 games, equal W/L/D), one puzzle batch
+   (equal results) and 3 co-scheduled moves (files byte for byte) on two
+   ranks against world 1; (e) ``tools.multihost_scaling --configs 1x1,2x1
+   --backend gloo``;
+17. the last JAX modules: (a) the C++ target loader
+   (``data/native_loader.py``) on phase 9's target and replay files
+   against the plain parse (``Target.from_line``, ``Replay.states``):
+   states, values, policies and positions equal, both timed; (b) a JAX
+   run's checkpoint (``tests/data/jax_model_4x4.ckpt``, flax msgpack)
+   loaded and evaluated on the card to JAX's outputs in
+   ``jax_model_4x4_outputs.npz`` within 1e-4 (float32), kernel B once;
+   (c) ``search/noise.py`` ``apply_dirichlet`` and ``search/policy.py``
+   ``uct_scores`` on a searched 6x6 tree (128 games, C=256): the noised
+   root sums to 1, UCT is finite on every valid unpruned slot, and both
+   equal the CPU's on the same tree and draws within 1e-6; (d)
+   ``tools.pool_cliff --stub --pools 776,3104 --sims 32`` and
+   ``tools.phase_cliff`` at the same pools: ms a simulation at each M and
+   its growth a pool doubling, kernel A once a simulation (read from the
+   counters);
+18. a ``kernels`` JSON line: each kernel with what it replaces, its
    launches on the move program (``launches``), on the learner
    (``learner_launches``), on the selfplay driver and on reanalyze
    (``selfplay_driver_launches``, ``reanalyze_launches``), on the serve
@@ -251,7 +268,8 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    [64, 1296] x [1296, 32] (``at_reuse_ab``), and on phase 16: both at
    selfplay's rank shapes (``at_rank_selfplay``), the launches of each
    rank (``launches_per_rank``) and the learner's gradient all-reduce
-   (``learner_allreduce_ms``).
+   (``learner_allreduce_ms``), and on phase 17 (``jax_checkpoint_launches``,
+   ``pool_tools_launches``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
@@ -269,8 +287,10 @@ it exits with 1 at once.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -2837,7 +2857,7 @@ def run_oracle_and_tools(dev) -> dict:
 # Phase 16: multi-device on the card.
 # ---------------------------------------------------------------------------
 
-SP16 = {"batch": 128, "sampled": 8, "budget": 24, "games": 32}  # 16c, net4_simhash
+SP16 = {"batch": 128, "sampled": 8, "budget": 24, "games": 16}  # 16c, net4_simhash, in bf16 and float32
 
 
 class _Lines(list):
@@ -2910,10 +2930,11 @@ def _rank_learn(driver_main, argv) -> dict:
             "calls": [(k, x.cpu(), None) for k, x, _, _ in calls], "rank": multihost.rank()}
 
 
-def _rank_selfplay(driver_main, argv) -> dict:
-    """16c, in each rank: ``drivers.selfplay`` in float32 with the last
-    move's kernel inputs recorded and each move's gather timed; returns the
-    result, this rank's counters and the gathers' milliseconds."""
+def _rank_selfplay(driver_main, argv, float32: bool = True) -> dict:
+    """16c, in each rank: ``drivers.selfplay`` (in float32 unless
+    ``float32`` is False) with the last move's kernel inputs recorded and
+    each move's gather timed; returns the result, this rank's counters and
+    the gathers' milliseconds."""
     import torch
 
     from takzero_torch.parallel import multihost
@@ -2932,7 +2953,8 @@ def _rank_selfplay(driver_main, argv) -> dict:
     _zero_launch_counts()
     multihost.all_gather_rows = timed
     try:
-        with recording_kernel_inputs(calls, last=2 * (SP16["budget"] + 1)), float32_presets(*F32_NETS):
+        with recording_kernel_inputs(calls, last=2 * (SP16["budget"] + 1)), \
+                float32_presets(*(F32_NETS if float32 else ())):
             result = driver_main(argv)
         torch.cuda.synchronize()
     finally:
@@ -3032,24 +3054,38 @@ def _rank_drivers(argv) -> dict:
     return out
 
 
-def evaluator_bf16_gap(net: str, dev) -> float:
+def padded_evaluator_gap(net: str, dev) -> dict:
     """The largest |difference| of the bf16 evaluator's outputs (logits,
     value, variance) on 128 random positions evaluated at once and as two
-    halves of 64: what parts two ranks' bf16 games from one rank's on the
-    card (logged, not gated)."""
+    ranks' halves of 64: ``padded`` through each rank's evaluator
+    (``make_net_evaluate(world=...)``, which runs the halves at the global
+    shape), which must be 0, and ``unpadded`` (each half alone), the gap
+    that parted two ranks' bf16 games from one rank's before the padding."""
     import torch
 
     from takzero_torch.config import NET_PRESETS
     from takzero_torch.models.agent import make_net_evaluate, new_agent
+    from takzero_torch.parallel.mesh import World
     from takzero_torch.tak.engine import engine
 
     cfg = NET_PRESETS[net]
     eng = engine(cfg.n, half_komi=cfg.half_komi)
     envs = random_positions(eng, 128, 3 * cfg.n * cfg.n // 2, torch.Generator(device=dev).manual_seed(16), dev)
-    agent, evaluate = new_agent(cfg, seed=16, device=dev), make_net_evaluate(cfg, eng, device=dev)
-    whole = evaluate(agent, envs)
-    halves = [evaluate(agent, envs.map(lambda x: x[s])) for s in (slice(0, 64), slice(64, 128))]
-    return max(float((torch.cat([a, b]) - w).abs().max()) for w, a, b in zip(whole, *halves))
+    agent = new_agent(cfg, seed=16, device=dev)
+    whole = make_net_evaluate(cfg, eng, device=dev)(agent, envs)
+    halves = [envs.map(lambda x: x[s]) for s in (slice(0, 64), slice(64, 128))]
+    gaps = {}
+    for name, evaluates in (
+        ("padded", [make_net_evaluate(cfg, eng, device=dev, world=World(rank=r, size=2, device=dev))
+                    for r in (0, 1)]),
+        ("unpadded", [make_net_evaluate(cfg, eng, device=dev)] * 2),
+    ):
+        parts = [evaluate(agent, h) for evaluate, h in zip(evaluates, halves)]
+        gaps[name] = max(float((torch.cat([a, b]) - w).abs().max()) for w, a, b in zip(whole, *parts))
+    if gaps["padded"] != 0.0:
+        raise AssertionError(f"{net}: the padded bf16 evaluator's halves differ from the whole batch by "
+                             f"{gaps['padded']}")
+    return gaps
 
 
 def _expect_equal_lines(what: str, a: list, b: list) -> None:
@@ -3173,31 +3209,40 @@ def run_multi_device(dev) -> dict:
         }
         log({"phase": "multi-device: learner", **out["learner"]})
 
-        # (c) selfplay: net4_simhash's widths in float32, 128 games (64 a
-        # rank), until 32 finish.  In float32 the network's outputs do not
-        # depend on the rows a launch holds, so two ranks must write world
-        # 1's bytes (in bf16 they part: the gap below is logged).
+        # (c) selfplay: net4_simhash, 128 games (64 a rank), until 16
+        # finish, in bf16 (the preset) and at its widths in float32.  The
+        # ranks evaluate at the global batch's shape, so two ranks must
+        # write world 1's bytes in both.
+        gaps = padded_evaluator_gap("net4_simhash", dev)
         sp = ["--net", "net4_simhash", "--seed", "3", "--batch", str(SP16["batch"]), "--budget",
               str(SP16["budget"]), "--sampled", str(SP16["sampled"]), "--max-games", str(SP16["games"])]
-        for name in ("s1", "s2"):
-            (d / name).mkdir()
-        t0 = time.perf_counter()
-        with float32_presets(*F32_NETS):
-            one = selfplay.main(["--directory", str(d / "s1"), *sp, "--device", str(dev)])
-        s1_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        two = _launcher("selfplay", ["--directory", str(d / "s2"), *sp, "--device", shared], _rank_selfplay)
-        s2_s = time.perf_counter() - t0
-        moves = two[0]["result"]["moves"]
-        for o in two:
-            per = {k: v / moves for k, v in o["launches"].items()}
-            if per != {"exact_top_k_unsorted": SP16["budget"] + 1, "simhash_pack": SP16["budget"] + 1}:
-                raise AssertionError(f"selfplay rank {o['rank']}: {per} launches a move, expected budget + 1")
-        replays = (d / "s2" / co.REPLAYS).read_text().splitlines()
-        if len(replays) != two[0]["result"]["replays"] or two[1]["result"]["replays"] != len(replays):
-            raise AssertionError(f"selfplay: {len(replays)} replay lines, the ranks counted "
-                                 f"{[o['result']['replays'] for o in two]}")
-        calls = [c for o in two for c in o["calls"]]
+        runs, seconds, files = {}, {}, {}
+        for dtype, float32 in (("bfloat16", False), ("float32", True)):
+            for name in ("s1", "s2"):
+                (d / f"{name}_{dtype}").mkdir()
+            t0 = time.perf_counter()
+            with float32_presets(*(F32_NETS if float32 else ())):
+                one = selfplay.main(["--directory", str(d / f"s1_{dtype}"), *sp, "--device", str(dev)])
+            t1 = time.perf_counter()
+            two = _launcher("selfplay", ["--directory", str(d / f"s2_{dtype}"), *sp, "--device", shared],
+                            functools.partial(_rank_selfplay, float32=float32))
+            runs[dtype], seconds[dtype] = (one, two), [t1 - t0, time.perf_counter() - t1]
+            moves = two[0]["result"]["moves"]
+            for o in two:
+                per = {k: v / moves for k, v in o["launches"].items()}
+                if per != {"exact_top_k_unsorted": SP16["budget"] + 1, "simhash_pack": SP16["budget"] + 1}:
+                    raise AssertionError(f"selfplay {dtype} rank {o['rank']}: {per} launches a move, "
+                                         "expected budget + 1")
+            replays = (d / f"s2_{dtype}" / co.REPLAYS).read_text().splitlines()
+            if len(replays) != two[0]["result"]["replays"] or two[1]["result"]["replays"] != len(replays):
+                raise AssertionError(f"selfplay {dtype}: {len(replays)} replay lines, the ranks counted "
+                                     f"{[o['result']['replays'] for o in two]}")
+            files[dtype] = {}
+            for f in (co.REPLAYS, co.TARGETS_SELFPLAY):
+                a, b = ((d / f"{n}_{dtype}" / f).read_text().splitlines() for n in ("s1", "s2"))
+                _expect_equal_lines(f"selfplay {dtype} {f}", a, b)
+                files[dtype][f] = len(a)
+        calls = [c for dtype in runs for o in runs[dtype][1] for c in o["calls"]]
         shapes = sorted({(k, tuple(x.shape)) for k, x, _ in calls})
         if shapes != [("A", (64, 944)), ("B", (64, 448))]:
             raise AssertionError(f"selfplay ranks: kernel shapes {shapes}")
@@ -3211,21 +3256,18 @@ def run_multi_device(dev) -> dict:
         b_call = next(c for c in calls if c[0] == "B")
         at_rank = {"exact_top_k_unsorted": {**time_topk(a_call[1].to(dev), a_call[2]), "max_abs_err": 0.0},
                    "simhash_pack": {**time_simhash(b_call[1].to(dev), b_call[2].to(dev)), "max_abs_err": err}}
-        files = {}
-        for f in (co.REPLAYS, co.TARGETS_SELFPLAY):
-            a, b = ((d / n / f).read_text().splitlines() for n in ("s1", "s2"))
-            _expect_equal_lines(f"selfplay {f}", a, b)
-            files[f] = len(a)
-        out["selfplay"] = {
-            "net": "net4_simhash's widths in float32 (16x256, SimHash 2^32)", "cuts": SP16, "moves": moves,
-            "world1_moves_per_s": one["moves"] / one["seconds"],
-            "world2_moves_per_s": two[0]["result"]["moves"] / two[0]["result"]["seconds"],
-            # The packed buffer's gather a move (its wait for the slower rank included).
-            "gather_ms_per_move": [float(np.mean(o["gather_ms"])) for o in two],
-            "gather_share_of_loop": [sum(o["gather_ms"]) / 1e3 / o["result"]["seconds"] for o in two],
-            "launches_per_rank": [o["launches"] for o in two], "lines_equal_to_world1": files,
-            "bf16_evaluator_gap_64_vs_128": evaluator_bf16_gap("net4_simhash", dev), "seconds": [s1_s, s2_s],
-        }
+        out["selfplay"] = {"net": "net4_simhash (16x256, SimHash 2^32), bf16 and float32", "cuts": SP16,
+                           "evaluator_gap_64_vs_128": gaps, "lines_equal_to_world1": files}
+        for dtype, (one, two) in runs.items():
+            out["selfplay"][dtype] = {
+                "moves": two[0]["result"]["moves"], "world1_moves_per_s": one["moves"] / one["seconds"],
+                "world2_moves_per_s": two[0]["result"]["moves"] / two[0]["result"]["seconds"],
+                # The packed buffer's gather a move (its wait for the slower rank included).
+                "gather_ms_per_move": [float(np.mean(o["gather_ms"])) for o in two],
+                "gather_share_of_loop": [sum(o["gather_ms"]) / 1e3 / o["result"]["seconds"] for o in two],
+                "launches_per_rank": [o["launches"] for o in two], "seconds": seconds[dtype],
+            }
+        out["selfplay"]["launches_per_rank"] = [o["launches"] for o in runs["bfloat16"][1]]
         log({"phase": "multi-device: selfplay", **out["selfplay"]})
 
         # (a, d) the collectives on two gloo ranks, then the other drivers.
@@ -3235,7 +3277,7 @@ def run_multi_device(dev) -> dict:
             ckpt.save_checkpoint(models, name, new_agent(cfg4, seed=seed, device=dev))
         model6 = ckpt.save_checkpoint(d, "model6.ckpt", new_agent(cfg6, seed=6, device=dev))
         for name in ("r1", "r2", "f1", "f2"):
-            shutil.copytree(d / "s1", d / name)
+            shutil.copytree(d / "s1_float32", d / name)
 
         def drivers_argv(tag: str, device: str) -> dict:
             return {
@@ -3279,13 +3321,10 @@ def run_multi_device(dev) -> dict:
                 budget = 9 if name == "evaluation" else 25
                 if got != budget * count:
                     raise AssertionError(f"{name} rank: kernel A {got} launches, expected {budget} x {count}")
-        # bf16: logged, not gated (the games part, as in 16c's gap).
-        a, b = ((d / n / co.TARGETS_REANALYZE).read_text().splitlines() for n in ("r1", "r2"))
-        others["reanalyze_bf16"] = {"equal": a == b, "first_difference": None if a == b else
-                                    _first_replay_difference(a, b)}
-        a, b = ((d / n / co.TARGETS_REANALYZE).read_text().splitlines() for n in ("f1", "f2"))
-        _expect_equal_lines("reanalyze targets", a, b)
-        others["reanalyze_float32"] = {"equal": True, "targets": len(a)}
+        for name, dtype in (("r", "bf16"), ("f", "float32")):
+            a, b = ((d / f"{name}{w}" / co.TARGETS_REANALYZE).read_text().splitlines() for w in (1, 2))
+            _expect_equal_lines(f"reanalyze {dtype} targets", a, b)
+            others[f"reanalyze_{dtype}"] = {"equal": True, "targets": len(a)}
         wld = [[(x, y, r.wins, r.losses, r.draws) for x, y, r in res]
                for res in (single["evaluation"], ranks[0]["evaluation"]["result"])]
         if wld[0] != wld[1]:
@@ -3327,6 +3366,203 @@ def run_multi_device(dev) -> dict:
     out["at_rank_selfplay"] = at_rank
     out["seconds"] = time.perf_counter() - t_phase
     log({"phase": "multi-device done", "seconds": out["seconds"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the last JAX modules.
+# ---------------------------------------------------------------------------
+
+JAX_MODEL = Path(__file__).resolve().parent / "tests" / "data" / "jax_model_4x4.ckpt"
+JAX_OUTPUTS = JAX_MODEL.with_name("jax_model_4x4_outputs.npz")
+POOLS17 = {"pools": "776,3104", "sims": 32}  # 17d
+
+
+def plain_parse_targets(n: int, text: str):
+    """``parse_targets``'s outputs from the plain per-line parse
+    (``Target.from_line``, ``tps_to_state``)."""
+    import numpy as np
+    import torch
+
+    from takzero_torch.data.target import Target
+    from takzero_torch.tak.tps import tps_to_state
+
+    targets = [Target.from_line(n, line) for line in text.splitlines() if line.strip()]
+    states = [tps_to_state(n, t.tps) for t in targets]
+    return (type(states[0])(*(torch.stack(x) for x in zip(*states))),
+            np.array([t.value for t in targets], np.float32), np.array([t.ube for t in targets], np.float32),
+            np.array([a for t in targets for a, _ in t.policy], np.int32),
+            np.array([p for t in targets for _, p in t.policy], np.float32),
+            np.cumsum([0] + [len(t.policy) for t in targets]).astype(np.int64))
+
+
+def check_native_loader(keep) -> dict:
+    """17a: the C++ loader against the plain parse on phase 9's files (4x4):
+    every target's state, value, UBE, actions and probabilities, and every
+    replay's positions, equal; each parse timed on the host clock."""
+    import numpy as np
+    import torch
+
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.data.native_loader import parse_replay_positions, parse_targets
+    from takzero_torch.data.target import Replay
+    from takzero_torch.parallel import coordinator as co
+    from takzero_torch.tak.engine import engine
+
+    cfg = NET_PRESETS["net4_simhash"]
+    eng = engine(cfg.n, half_komi=cfg.half_komi)
+    out = {"phase": "last modules: C++ target loader against the plain parse", "card": card_line()}
+    for name in (co.TARGETS_SELFPLAY, co.TARGETS_REANALYZE):
+        text = Path(keep, f"loop_{name}").read_text()
+        t0 = time.perf_counter()
+        native = parse_targets(eng.n, text)
+        t1 = time.perf_counter()
+        plain = plain_parse_targets(eng.n, text)
+        t2 = time.perf_counter()
+        for field in native[0]._fields:
+            got = getattr(native[0], field)
+            if not torch.equal(got, getattr(plain[0], field).to(got.dtype)):
+                raise AssertionError(f"17a {name}: the C++ parse's {field} differs from the plain parse's")
+        for i, (a, b) in enumerate(zip(native[1:], plain[1:])):
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"17a {name}: output {i + 1} of the C++ parse differs from the plain parse's")
+        out[name] = {"targets": int(len(native[1])), "cpp_ms": (t1 - t0) * 1e3, "plain_ms": (t2 - t1) * 1e3}
+    lines = Path(keep, f"loop_{co.REPLAYS}").read_text().splitlines()
+    t0 = time.perf_counter()
+    states, plies = parse_replay_positions(eng.n, eng.half_komi, eng.reversible_limit, "\n".join(lines) + "\n")
+    t1 = time.perf_counter()
+    plain = [s for line in lines for s in Replay.from_line(eng.n, line).states(eng)]
+    t2 = time.perf_counter()
+    if len(plain) != len(plies) or not np.array_equal(plies, [int(s.ply) for s in plain]):
+        raise AssertionError(f"17a replays: {len(plies)} positions from the C++ loader, {len(plain)} plain")
+    for field in states._fields:
+        want = torch.stack([getattr(s, field) for s in plain])
+        if not torch.equal(getattr(states, field), want.to(getattr(states, field).dtype)):
+            raise AssertionError(f"17a replays: the C++ loader's {field} differs from the plain explosion's")
+    out[co.REPLAYS] = {"replays": len(lines), "positions": int(len(plies)), "cpp_ms": (t1 - t0) * 1e3,
+                       "plain_ms": (t2 - t1) * 1e3}
+    log(out)
+    return out
+
+
+def check_jax_checkpoint(dev) -> dict:
+    """17b: the committed JAX checkpoint, loaded through the flax reader
+    and evaluated on the card (float32, no TF32) to JAX's outputs within
+    1e-4; kernel B once (read from the counter)."""
+    import numpy as np
+    import torch
+
+    from takzero_torch.models.agent import make_net_evaluate, new_agent
+    from takzero_torch.models.network import NetConfig
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.tak.tps import tps_to_state
+    from takzero_torch.utils import ckpt
+
+    want = np.load(JAX_OUTPUTS)
+    cfg = NetConfig(n=int(want["n"]), half_komi=int(want["half_komi"]), filters=int(want["filters"]),
+                    blocks=int(want["blocks"]), novelty=str(want["novelty"]), hash_bits=int(want["hash_bits"]),
+                    compute_dtype=torch.float32)
+    eng = engine(cfg.n, half_komi=cfg.half_komi)
+    t0 = time.perf_counter()
+    bundle = ckpt.load_checkpoint(JAX_MODEL, new_agent(cfg, seed=0, device=dev))
+    load_s = time.perf_counter() - t0
+    states = [tps_to_state(cfg.n, str(t)) for t in want["tps"]]
+    envs = type(states[0])(*(torch.stack(x).to(dev) for x in zip(*states)))
+    _zero_launch_counts()
+    got = make_net_evaluate(cfg, eng, device=dev)(bundle, envs)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if launches != {"exact_top_k_unsorted": 0, "simhash_pack": 1}:
+        raise AssertionError(f"17b: launches {launches}, expected kernel B once")
+    err = {}
+    for g, name in zip(got, ("logits", "value", "variance")):
+        g = g.float().cpu().numpy()
+        err[name] = float(np.abs(g - want[name]).max())
+        if not np.allclose(g, want[name], rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"17b: {name} off JAX's by {err[name]}")
+    out = {"phase": "last modules: a JAX checkpoint on the card", "card": card_line(), "file": str(JAX_MODEL.name),
+           "bytes": JAX_MODEL.stat().st_size, "positions": len(states), "load_s": load_s, "max_abs_err": err,
+           "launches": launches}
+    log(out)
+    return out
+
+
+def check_noise_and_uct(dev) -> dict:
+    """17c: Dirichlet noise and UCT scores on a searched 6x6 tree (128
+    games, C=256, 32 simulations of the simple evaluator)."""
+    import torch
+
+    from takzero_torch.search import eval as ev
+    from takzero_torch.search.agents import simple_evaluator
+    from takzero_torch.search.core import make_simulate
+    from takzero_torch.search.noise import apply_dirichlet, gamma_draws
+    from takzero_torch.search.policy import uct_scores
+    from takzero_torch.search.tree import init_tree
+    from takzero_torch.tak.engine import engine
+
+    eng = engine(6, half_komi=4)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tree = init_tree(eng, random_positions(eng, 128, 20, gen, dev), 40, 256)
+    simulate = make_simulate(eng, simple_evaluator(eng))
+    for _ in range(32):
+        tree = simulate(tree, torch.zeros(128, device=dev))
+    gamma = gamma_draws(gen, 0.3, (128, 256))
+    noised = apply_dirichlet(tree, gamma, 0.25)
+    visits = tree.root_visit.clone()
+    scores = uct_scores(noised, visits, 0.5)
+    valid = tree.child_action[:, 0, :] >= 0
+    sums = noised.child_prob[:, 0, :].sum(-1)
+    if not bool(((sums - 1).abs() < 1e-5).all()) or bool(noised.child_prob[:, 0, :][~valid].any()):
+        raise AssertionError(f"17c: noised roots sum to {sums.min().item()}..{sums.max().item()}")
+    pruned = (tree.child_flag[:, 0, :] == ev.WIN) & (tree.root_flag != ev.LOSS)[:, None]
+    if not bool(torch.isfinite(scores[valid & ~pruned]).all()) or bool(torch.isfinite(scores[~valid]).any()):
+        raise AssertionError("17c: UCT is not finite on exactly the valid unpruned slots")
+    host = type(tree)(*(v.map(lambda x: x.cpu()) if hasattr(v, "map") else v.cpu() for v in tree))
+    noised_cpu = apply_dirichlet(host, gamma.cpu(), 0.25)
+    err = {"prob": float((noised.child_prob.cpu() - noised_cpu.child_prob).abs().max()),
+           "logit": float((noised.child_logit.cpu() - noised_cpu.child_logit).abs().max())}
+    scores_cpu = uct_scores(noised_cpu, visits.cpu(), 0.5)
+    fin = torch.isfinite(scores_cpu)
+    if not torch.equal(fin, torch.isfinite(scores.cpu())):
+        raise AssertionError("17c: UCT's -inf slots differ between the card and the CPU")
+    err["uct"] = float((scores.cpu()[fin] - scores_cpu[fin]).abs().max())
+    if max(err.values()) > 1e-6:
+        raise AssertionError(f"17c: the card and the CPU differ by {err}")
+    out = {"phase": "last modules: Dirichlet noise and UCT", "card": card_line(), "games": 128, "simulations": 32,
+           "valid_slots": int(valid.sum()), "pruned_slots": int((valid & pruned).sum()), "card_vs_cpu": err}
+    log(out)
+    return out
+
+
+def run_pool_tools(dev) -> dict:
+    """17d: ``pool_cliff --stub`` and ``phase_cliff`` at M = 776 and 3104,
+    32 simulations; kernel A once a simulation with an ``apply_eval``."""
+    from takzero_torch.tools import cliff_timing, phase_cliff, pool_cliff
+
+    argv = ["--pools", POOLS17["pools"], "--sims", str(POOLS17["sims"]), "--device", str(dev)]
+    n_pools, sims = len(POOLS17["pools"].split(",")), POOLS17["sims"]
+    # Every M: a warm-up and a timed pass of ``sims`` simulations and a
+    # profiled pass of a few; phase_cliff makes them for forward+apply_eval
+    # and for the full simulation (forward alone expands nothing).
+    per_pool = 2 * sims + min(sims, cliff_timing.PROFILE_SIMS)
+    out = {"phase": "last modules: pool-size tools", "card": card_line()}
+    t0 = time.perf_counter()
+    launches = {}
+    for name, main, extra, passes in (("pool_cliff", pool_cliff.main, ["--stub", "--reps", "1"], 1),
+                                      ("phase_cliff", phase_cliff.main, [], 2)):
+        _zero_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows = main(argv + extra)
+        launches[name] = _launch_counts()
+        want = {"exact_top_k_unsorted": passes * per_pool * n_pools, "simhash_pack": 0}
+        if launches[name] != want:
+            raise AssertionError(f"17d {name}: launches {launches[name]}, expected {want}")
+        out[name] = [{k: r[k] for k in ("M", "phase", "ms_per_sim", "kernels", "device_ms") if k in r} for r in rows]
+    ms = {r["M"]: r["ms_per_sim"] for r in out["pool_cliff"]}
+    lo, hi = sorted(ms)
+    out["ms_per_sim_growth_per_doubling"] = (ms[hi] / ms[lo]) ** (1 / math.log2(hi / lo)) - 1
+    out["launches"], out["seconds"] = launches, time.perf_counter() - t0
+    log(out)
     return out
 
 
@@ -3385,10 +3621,16 @@ def main() -> int:
         ens_net5 = run_ensemble_and_net5(dev)
         log({"phase": "novelty variants done", "seconds": time.perf_counter() - t13})
         eee = run_eee_and_visualizers(dev, keep)
+        check_native_loader(keep)  # 17a, on phase 9's files
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     tools = run_oracle_and_tools(dev)
     multi = run_multi_device(dev)
+    t17 = time.perf_counter()
+    jax_ckpt = check_jax_checkpoint(dev)
+    check_noise_and_uct(dev)
+    pool_tools = run_pool_tools(dev)
+    log({"phase": "last modules done", "seconds": time.perf_counter() - t17})
 
     kernels = []
     for name, out, source, replaces in (
@@ -3457,6 +3699,9 @@ def main() -> int:
         }
         entry["learner_allreduce_ms"] = {"world1_nccl": multi["learner"]["allreduce_ms_world1_nccl"],
                                          "world2_gloo_one_card": multi["learner"]["allreduce_ms_world2_gloo"]}
+        # Phase 17, read from the counters in this run.
+        entry["jax_checkpoint_launches"] = jax_ckpt["launches"][name]
+        entry["pool_tools_launches"] = {k: v[name] for k, v in pool_tools["launches"].items()}
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())
     log({"kernels": kernels})

@@ -14,13 +14,11 @@ overrides: TAKZERO_BENCH_BATCH, TAKZERO_BENCH_BUDGET,
 TAKZERO_BENCH_SAMPLED, TAKZERO_BENCH_MOVES, TAKZERO_BENCH_FILTERS,
 TAKZERO_BENCH_BLOCKS, TAKZERO_BENCH_CHILDREN, TAKZERO_BENCH_REUSE (0
 disables tree reuse), TAKZERO_BENCH_VERBOSE (1: per-move seconds on
-stderr), TAKZERO_BENCH_CKPT (a checkpoint of the port's learner,
-``takzero_torch/utils/ckpt.py``: its weights, SimHash matrix and, for a
-step checkpoint, seen-set replace the random ones; the SimHash width is
-the checkpoint's, and its filters and blocks must match
-TAKZERO_BENCH_FILTERS and TAKZERO_BENCH_BLOCKS).  A JAX run's flax
-msgpack file is refused: its weights come over through
-``takzero_torch.bridge``.
+stderr), TAKZERO_BENCH_CKPT (a checkpoint of the port's learner or a
+JAX run's, ``takzero_torch/utils/ckpt.py``: its weights, SimHash matrix
+and, for a step checkpoint, seen-set replace the random ones; the
+SimHash width is the checkpoint's, and its filters and blocks must match
+TAKZERO_BENCH_FILTERS and TAKZERO_BENCH_BLOCKS).
 
 ``vs_baseline`` divides by ``reference_on_this_host_sims_per_s_total`` in
 ``BASELINE.json``, as the root bench does; that anchor was measured on the

@@ -19,11 +19,15 @@ and batch compute the same step.  Optimizer state is not carried; it
 starts fresh on both sides, as in the JAX learner, whose checkpoints hold
 no optax state.
 
-This module needs neither JAX nor flax: the bundle is plain nested dicts of
-numpy arrays.
+The same naming, :func:`jax_checkpoint_state`, reads a JAX run's
+``model_*.ckpt`` into the port's checkpoint layout (``utils/ckpt.py``,
+through ``utils/flax_msgpack.py``).  This module needs neither JAX nor
+flax: the bundle is plain nested dicts of numpy arrays.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -31,51 +35,69 @@ import torch
 from .device import resolve_device
 from .models.network import EnsembleHeads, NetConfig, RndPair, TakNet, fold_inference_params
 
-
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
-
-
-def _conv(conv: torch.nn.Conv2d, p: dict) -> None:
-    conv.weight.copy_(_t(np.transpose(p["kernel"], (3, 2, 0, 1))))
-    if conv.bias is not None:
-        conv.bias.copy_(_t(p["bias"]))
+MODULES = {"params": "net", "rnd_params": "rnd", "ensemble_params": "ensemble"}
+STATS = {"batch_stats": "net", "rnd_batch_stats": "rnd"}
+# JAX leaf -> the port's state-dict leaf.
+_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
-def _convbn(mod, p: dict, s: dict) -> None:
-    _conv(mod.conv, p["Conv_0"])
-    bn = mod.bn
-    bn.weight.copy_(_t(p["BatchNorm_0"]["scale"]))
-    bn.bias.copy_(_t(p["BatchNorm_0"]["bias"]))
-    bn.running_mean.copy_(_t(s["BatchNorm_0"]["mean"]))
-    bn.running_var.copy_(_t(s["BatchNorm_0"]["var"]))
+def _segment(path: tuple, name: str) -> str:
+    """The port's submodule name of the flax module ``name`` under ``path``."""
+    parent = path[-1] if path else ""
+    if name == "ConvBN_0":
+        return "a" if parent.startswith("ResBlock_") else "stem"
+    if name == "ConvBN_1":
+        return "b" if parent.startswith("ResBlock_") else "head"
+    if name == "Conv_0":
+        return "policy" if not path else "conv"
+    if name.startswith("Dense_"):
+        return f"layers.{name[6:]}" if parent in ("predictor", "target") else "dense"
+    m = re.fullmatch(r"(ResBlock|head)_(\d+)", name)
+    if m:
+        return f"{'blocks' if m.group(1) == 'ResBlock' else 'heads'}.{m.group(2)}"
+    return {"BatchNorm_0": "bn", "LayerNorm_0": "norm"}.get(name, name)
 
 
-def _dense(dense: torch.nn.Linear, p: dict) -> None:
-    dense.weight.copy_(_t(p["kernel"]).t())
-    dense.bias.copy_(_t(p["bias"]))
+def _leaf(x) -> torch.Tensor:
+    """A kernel from HWIO to OIHW (convolutions) or [in, out] to [out, in]
+    (dense layers), as float32."""
+    a = np.array(x, dtype=np.float32)
+    if a.ndim == 4:
+        a = np.transpose(a, (3, 2, 0, 1))
+    elif a.ndim == 2:
+        a = a.T
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _head(mod, p: dict) -> None:
-    _conv(mod.conv, p["Conv_0"])
-    _dense(mod.dense, p["Dense_0"])
+def _walk(tree: dict, path: tuple, out: dict) -> None:
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            _walk(v, path + (name,), out)
+            continue
+        key = ".".join([_segment(path[:i], p) for i, p in enumerate(path)] + [_LEAVES.get(name, name)])
+        out[key] = _leaf(v) if name == "kernel" else torch.from_numpy(np.array(v, dtype=np.float32))
+        if path and path[-1] == "BatchNorm_0" and name == "mean":
+            out[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
 
 
-def _rnd_tower(tower, p: dict, s: dict) -> None:
-    """An ``RndTower`` (LayerNorm_0, ConvBN_0, ResBlock_i, ConvBN_1) or an
-    ``RndMlp`` (Dense_0..2)."""
-    if "LayerNorm_0" not in p:
-        for i, dense in enumerate(tower.layers):
-            _dense(dense, p[f"Dense_{i}"])
-        return
-    tower.norm.weight.copy_(_t(p["LayerNorm_0"]["scale"]))
-    tower.norm.bias.copy_(_t(p["LayerNorm_0"]["bias"]))
-    _convbn(tower.stem, p["ConvBN_0"], s["ConvBN_0"])
-    for i, blk in enumerate(tower.blocks):
-        bp, bs = p[f"ResBlock_{i}"], s[f"ResBlock_{i}"]
-        _convbn(blk.a, bp["ConvBN_0"], bs["ConvBN_0"])
-        _convbn(blk.b, bp["ConvBN_1"], bs["ConvBN_1"])
-    _convbn(tower.head, p["ConvBN_1"], s["ConvBN_1"])
+def jax_checkpoint_state(bundle_np: dict) -> dict:
+    """The port's checkpoint entries (``utils/ckpt.py``'s layout:
+    ``{"net": state dict, "rnd": ..., "ensemble": ..., "hash_matrix": ...}``)
+    of a JAX bundle with numpy leaves, named leaf by leaf, so that a file
+    of another architecture still gives every leaf it has (the partial
+    load keeps the bundle's value where one does not fit).  Leaves the
+    port has no place for keep their JAX names."""
+    state: dict = {}
+    for key, v in bundle_np.items():
+        module = MODULES.get(key) or STATS.get(key)
+        if module is not None:
+            _walk(v, (), state.setdefault(module, {}))
+        elif key == "hash_bits":  # uint32 words kept as int32 bit patterns
+            words = np.ascontiguousarray(np.asarray(v, np.uint32))
+            state[key] = torch.from_numpy(words.view(np.int32).copy())
+        else:
+            state[key] = torch.from_numpy(np.array(v, dtype=np.float32))
+    return state
 
 
 @torch.no_grad()
@@ -83,8 +105,7 @@ def rnd_pair_from_jax(params: dict, batch_stats: dict, cfg: NetConfig, device=No
     """The port's :class:`RndPair` holding a JAX ``RndPair``'s variables
     (``params`` and ``batch_stats`` as numpy arrays), in eval mode."""
     rnd = RndPair(cfg)
-    for name in ("predictor", "target"):
-        _rnd_tower(getattr(rnd, name), params[name], batch_stats.get(name, {}))
+    rnd.load_state_dict(jax_checkpoint_state({"rnd_params": params, "rnd_batch_stats": batch_stats})["rnd"])
     return rnd.to(resolve_device(device)).eval()
 
 
@@ -92,31 +113,23 @@ def rnd_pair_from_jax(params: dict, batch_stats: dict, cfg: NetConfig, device=No
 def from_jax_bundle(bundle_np: dict, cfg: NetConfig, device=None) -> dict:
     """The port's agent bundle holding the JAX bundle's weights and novelty state."""
     dev = resolve_device(device)
-    params, stats = bundle_np["params"], bundle_np["batch_stats"]
+    state = jax_checkpoint_state(bundle_np)
     net = TakNet(cfg)
-    core_p, core_s = params["core"], stats["core"]
-    _convbn(net.core.stem, core_p["ConvBN_0"], core_s["ConvBN_0"])
-    for i, blk in enumerate(net.core.blocks):
-        bp, bs = core_p[f"ResBlock_{i}"], core_s[f"ResBlock_{i}"]
-        _convbn(blk.a, bp["ConvBN_0"], bs["ConvBN_0"])
-        _convbn(blk.b, bp["ConvBN_1"], bs["ConvBN_1"])
-    _conv(net.policy, params["Conv_0"])
-    _head(net.value, params["value"])
-    _head(net.ube, params["ube"])
+    net.load_state_dict(state["net"])
     net = net.to(dev).eval()
     bundle = {"net": net, "folded": fold_inference_params(cfg, net)}
     if cfg.novelty in ("simhash", "lcghash"):
-        words = np.ascontiguousarray(np.asarray(bundle_np["hash_bits"], np.uint32))
-        bundle["hash_bits"] = torch.from_numpy(words.view(np.int32).copy()).to(dev)
+        bundle["hash_bits"] = state["hash_bits"].to(dev)
         key = "hash_matrix" if cfg.novelty == "simhash" else "hash_scale"
-        bundle[key] = _t(bundle_np[key]).to(dev)
+        bundle[key] = state[key].to(dev)
     elif cfg.novelty == "rnd":
-        bundle["rnd"] = rnd_pair_from_jax(bundle_np["rnd_params"], bundle_np["rnd_batch_stats"], cfg, dev)
-        bundle["rnd_min"] = _t(bundle_np["rnd_min"]).to(dev)
-        bundle["rnd_max"] = _t(bundle_np["rnd_max"]).to(dev)
+        rnd = RndPair(cfg)
+        rnd.load_state_dict(state["rnd"])
+        bundle["rnd"] = rnd.to(dev).eval()
+        bundle["rnd_min"] = state["rnd_min"].to(dev)
+        bundle["rnd_max"] = state["rnd_max"].to(dev)
     elif cfg.novelty == "ensemble":
         ens = EnsembleHeads(cfg)
-        for i, head in enumerate(ens.heads):
-            _head(head, bundle_np["ensemble_params"][f"head_{i}"])
+        ens.load_state_dict(state["ensemble"])
         bundle["ensemble"] = ens.to(dev).eval()
     return bundle

@@ -1,12 +1,14 @@
 """Target-line parsing, replay explosion and training-batch assembly.
 
-Counterpart of the functions of ``takzero_tpu/data/native_loader.py``
-that the learner and reanalyze call, under the same names.  The JAX
-package parses with its C++ library (``takzero_tpu/cpp/tak_io.cpp``); the
-port parses in Python through its own ``tak/tps.py`` and ``tak/moves.py``
-and keeps the reference's tolerance: a malformed line is dropped, not
-raised.  Replays are exploded by stepping all replays of one read together
-on the port's engine, one batched ``step`` per ply.
+Counterpart of ``takzero_tpu/data/native_loader.py``, under the same
+names.  As there, the wire formats are parsed by the C++ loader
+(``cpp/tak_io.cpp``, the port's copy, linked into ``libtak_oracle`` by
+``ops/_cpp_build.py``) through ctypes: target lines, replay explosion into
+the position before every action (stepped by the C++ rules core), and one
+TPS or PTN move.  A malformed line is dropped, not raised; a replay with a
+bad move token is dropped whole.  ``explode_replays`` steps parsed
+replays on a device instead, for the paths that need the positions there
+(EEE, the replay visualizers).
 
 ``make_batch_native`` draws one symmetry per target exactly as the JAX
 function does (``rng.integers(0, 8, size=t)`` on a numpy ``Generator``),
@@ -17,20 +19,43 @@ built on the batch's device.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from ..data.target import RESULTS, Replay
+from ..data.target import Replay
 from ..device import resolve_device
+from ..ops import _cpp_build
 from ..ops.repr import scatter_policy, state_to_planes
-from ..tak.moves import ptn_to_action
 from ..tak.state import TakState, initial_state_batch
 from ..tak.symmetry import action_maps, transform_state
-from ..tak.engine import engine
 from ..tak.tps import states_to_tps, tps_fields
 from ..train.learner import Batch
+
+_I, _L, _CP = ctypes.c_int, ctypes.c_long, ctypes.c_char_p
+_P64, _P32, _PF = (ctypes.POINTER(t) for t in (ctypes.c_int64, ctypes.c_int32, ctypes.c_float))
+# name -> (argtypes, restype): ``takzero_tpu/data/native_loader.py``'s.
+_SIGNATURES = {
+    "tak_parse_tps": ([_I, _CP, _L, _P64], _I),
+    "tak_parse_ptn": ([_I, _CP, _L], _I),
+    "tak_parse_targets": ([_I, _CP, _L, _I, _L, _P64, _PF, _PF, _P32, _PF, _P64, _P32], _I),
+    "tak_parse_replays": ([_I, _I, _I, _CP, _L, _L, _P64, _P32], _I),
+}
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_cpp_build.build("tak_oracle")))
+    for name, (args, res) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+    return lib
+
+
+def _ptr(x: np.ndarray, kind):
+    return x.ctypes.data_as(kind)
 
 
 def state_size(n: int) -> int:
@@ -42,8 +67,8 @@ def unpack_states(n: int, buf: np.ndarray) -> TakState:
     """int64[T, state_size] rows -> batched TakState on the CPU.
 
     A row is height [S], the int64 colour fields [S], tops [S], reserves
-    [4], to_move, ply, reversible: the JAX package's layout, whose colour
-    column holds the same 64 bits.
+    [4], to_move, ply, reversible: the C++ loader's layout, whose colour
+    column holds the same 64 bits as the JAX package's lo/hi pair.
     """
     s = n * n
     buf = torch.from_numpy(np.ascontiguousarray(buf, np.int64).reshape(-1, state_size(n)))
@@ -59,59 +84,52 @@ def unpack_states(n: int, buf: np.ndarray) -> TakState:
     )
 
 
-@functools.lru_cache(maxsize=1 << 16)
-def _action(n: int, move: str) -> int:
-    return ptn_to_action(n, move)
+def parse_tps(n: int, tps: str) -> TakState:
+    """One position (tensors without a batch dimension) from its TPS, by
+    the C++ parser; raises ``ValueError`` on a bad TPS."""
+    buf = np.zeros(state_size(n), np.int64)
+    raw = tps.encode()
+    if _lib().tak_parse_tps(n, raw, len(raw), _ptr(buf, _P64)) != 0:
+        raise ValueError(f"bad TPS: {tps!r}")
+    return unpack_states(n, buf[None]).map(lambda x: x[0])
 
 
-def _parse_line(n: int, line: str):
-    """(state fields, value, ube, actions, probs) of one line; raises on a
-    malformed one (the rules of ``Target.from_line``)."""
-    tps, value, ube, pol = line.split(";")
-    actions, probs = [], []
-    for item in pol.split(","):
-        mv, p = item.rsplit(":", 1)
-        actions.append(_action(n, mv))
-        probs.append(float(p))
-    return tps_fields(n, tps), float(value), float(ube), actions, probs
+def parse_ptn(n: int, ptn: str) -> int:
+    """The action of one PTN move, by the C++ parser; raises ``ValueError``
+    on a bad move."""
+    raw = ptn.encode()
+    a = _lib().tak_parse_ptn(n, raw, len(raw))
+    if a < 0:
+        raise ValueError(f"bad PTN move: {ptn!r}")
+    return a
 
 
-def parse_targets(n: int, text: str, return_lines: bool = False):
+def parse_targets(n: int, text: str, max_targets: int | None = None, return_lines: bool = False):
     """-> (states TakState[T] on the CPU, value[T], ube[T], actions, probs,
-    offsets[T+1] [, line_numbers[T]]).
+    offsets[T+1] [, line_numbers[T]]), at most ``max_targets`` targets
+    (default: one a line).
 
     Malformed lines are skipped, matching the learner's tolerance; blank
     lines are skipped and still counted in the line numbers.
     """
-    fields, value, ube, actions, probs, offsets, line_numbers = [], [], [], [], [], [0], []
-    for i, raw in enumerate(text.split("\n")):
-        line = raw.rstrip("\r ")
-        if not line:
-            continue
-        try:
-            f, v, u, acts, ps = _parse_line(n, line)
-        except (ValueError, IndexError):
-            continue
-        fields.append(f)
-        value.append(v)
-        ube.append(u)
-        actions += acts
-        probs += ps
-        offsets.append(len(actions))
-        line_numbers.append(i)
-    if fields:
-        states = TakState(**{k: torch.from_numpy(np.stack([f[k] for f in fields])) for k in TakState._fields})
-    else:
-        states = initial_state_batch(n, 0)
-    out = (
-        states,
-        np.asarray(value, np.float32),
-        np.asarray(ube, np.float32),
-        np.asarray(actions, np.int32),
-        np.asarray(probs, np.float32),
-        np.asarray(offsets, np.int64),
+    raw = text.encode()
+    if max_targets is None:
+        max_targets = text.count("\n") + 1
+    cap_policy = max(1, len(raw) // 4)  # every policy item is >= 4 bytes
+    states = np.zeros((max_targets, state_size(n)), np.int64)
+    value = np.zeros(max_targets, np.float32)
+    ube = np.zeros(max_targets, np.float32)
+    actions = np.zeros(cap_policy, np.int32)
+    probs = np.zeros(cap_policy, np.float32)
+    offsets = np.zeros(max_targets + 1, np.int64)
+    lines = np.zeros(max_targets, np.int32)
+    t = _lib().tak_parse_targets(
+        n, raw, len(raw), max_targets, cap_policy, _ptr(states, _P64), _ptr(value, _PF), _ptr(ube, _PF),
+        _ptr(actions, _P32), _ptr(probs, _PF), _ptr(offsets, _P64), _ptr(lines, _P32),
     )
-    return out + (np.asarray(line_numbers, np.int32),) if return_lines else out
+    end = int(offsets[t])
+    out = (unpack_states(n, states[:t]), value[:t], ube[:t], actions[:end], probs[:end], offsets[: t + 1])
+    return out + (lines[:t],) if return_lines else out
 
 
 def valid_target_lines(n: int, lines: list[str]) -> list[str]:
@@ -123,41 +141,29 @@ def valid_target_lines(n: int, lines: list[str]) -> list[str]:
     return [lines[i] for i in idx]
 
 
-def _parse_replay(n: int, raw: str):
-    """(start TPS fields, actions) of one replay line, or None where the
-    C++ parser (``tak_parse_replays``) skips the line: no ``[TPS "..."]``
-    head, a bad TPS, or a bad move token.  Tokens end at a result."""
-    line = raw.rstrip("\r ")
-    if len(line) <= 8 or not line.startswith('[TPS "'):
-        return None
-    end = line.find('"]', 6)
-    if end < 0:
-        return None
-    try:
-        fields = tps_fields(n, line[6:end])
-        actions = []
-        for tok in line[end + 2 :].split(" "):
-            if not tok:
-                continue
-            if tok in RESULTS:
-                break
-            actions.append(_action(n, tok))
-    except (ValueError, IndexError):
-        return None
-    return fields, actions
+def parse_replay_rows(n: int, half_komi: int, reversible_limit: int, text: str,
+                      cap_positions: int | None = None):
+    """Explode replay lines into the position before every action, by the
+    C++ loader: -> (int64[P, state_size] rows, plies int32[P]), in replay
+    order, then in ply order (reference reanalyze/src/main.rs:269-290).
+    A line with no ``[TPS "..."]`` head, a bad TPS or a bad move token
+    gives nothing."""
+    raw = text.encode()
+    if cap_positions is None:
+        cap_positions = max(16, len(raw) // 2)  # at most one position per 3 bytes of move text
+    rows = np.zeros((cap_positions, state_size(n)), np.int64)
+    plies = np.zeros(cap_positions, np.int32)
+    p = _lib().tak_parse_replays(n, half_komi, reversible_limit, raw, len(raw), cap_positions,
+                                 _ptr(rows, _P64), _ptr(plies, _P32))
+    return rows[:p].copy(), plies[:p].copy()  # not views that hold the whole capacity
 
 
-def parse_replay_positions(n: int, half_komi: int, reversible_limit: int, text: str):
-    """Explode replay lines into the position before every action.
-
-    -> (states TakState[P] on the CPU, plies int32[P]), in replay order,
-    then in ply order (reference reanalyze/src/main.rs:269-290).  All
-    replays are stepped together: one batched ``eng.step`` per ply.
-    """
-    eng = engine(n, half_komi=half_komi, reversible_limit=reversible_limit)
-    parsed = [p for p in (_parse_replay(n, raw) for raw in text.split("\n")) if p is not None]
-    states = explode_replays(eng, parsed, torch.device("cpu"))
-    return states, states.ply.numpy()
+def parse_replay_positions(n: int, half_komi: int, reversible_limit: int, text: str,
+                           cap_positions: int | None = None):
+    """:func:`parse_replay_rows` as (states TakState[P] on the CPU, plies
+    int32[P])."""
+    rows, plies = parse_replay_rows(n, half_komi, reversible_limit, text, cap_positions)
+    return unpack_states(n, rows), plies
 
 
 def explode_replays(eng, parsed, device: torch.device) -> TakState:

@@ -164,7 +164,7 @@ def main(argv=None, draws=None) -> dict:
     rng = np.random.default_rng(args.seed)
     if draws is None:
         draws = GeneratorDraws(torch.Generator(device=dev).manual_seed(args.seed))
-    evaluator = make_net_evaluate(net_cfg, eng, device=dev)
+    evaluator = make_net_evaluate(net_cfg, eng, device=dev, world=world)
     sp = SelfplayEngine(eng, sp_cfg, evaluator, device=dev, world=world)
     sp.reset(draws.opening(sp_cfg.batch, sp_cfg.max_children))
     train_step = make_train_step(net_cfg, world)

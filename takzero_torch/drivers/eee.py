@@ -15,8 +15,8 @@ Each writes ``eee_data.csv`` (rnd/generalization/ensemble) or prints a
 Python-literal ratio list (seen-ratio), matching the reference's outputs
 so its plotting scripts keep working.  Every subcommand takes ``--device``
 (default ``cuda``, which raises without CUDA; ``--device cpu`` runs on the
-CPU).  ``seen-ratio --model`` reads the port's checkpoint format; a JAX
-run's flax msgpack file raises ``ForeignCheckpoint``.  ``--png`` needs
+CPU).  ``seen-ratio --model`` reads the port's checkpoint or a JAX
+run's flax msgpack file.  ``--png`` needs
 matplotlib.
 """
 

@@ -109,7 +109,7 @@ def main(argv=None) -> list:
     gen = torch.Generator(device=dev).manual_seed(seed % 2**63)
 
     compete = make_compete(
-        eng, make_net_evaluate(net_cfg, eng, device=dev), args.sampled, args.budget,
+        eng, make_net_evaluate(net_cfg, eng, device=dev, world=world), args.sampled, args.budget,
         max_children=256 if net_cfg.n >= 6 else 128, tree_reuse=not args.fresh_tree,
         world=world,
     )

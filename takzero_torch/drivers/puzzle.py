@@ -202,7 +202,7 @@ def main(argv=None) -> list:
     n = net_cfg.n
     eng = engine(n, half_komi=net_cfg.half_komi)
     bundle = ckpt.load_checkpoint_partial(args.model, new_agent(net_cfg, seed=0, device=dev))
-    search_step = make_search_step(eng, net_cfg, make_net_evaluate(net_cfg, eng, device=dev),
+    search_step = make_search_step(eng, net_cfg, make_net_evaluate(net_cfg, eng, device=dev, world=world),
                                    args.sampled_actions, args.search_budget, world)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 

@@ -45,12 +45,12 @@ log = logging.getLogger("reanalyze")
 
 def explode_replays(eng, lines: list[str]) -> list[np.ndarray]:
     """Every position of every replay (target.rs:205-212) as packed int64
-    rows, all replays of the read stepped together."""
+    rows, exploded by the C++ loader."""
     if not lines:
         return []
     text = "\n".join(line.rstrip("\n") for line in lines) + "\n"
-    states, _ = nl.parse_replay_positions(eng.n, eng.half_komi, eng.reversible_limit, text)
-    return list(pack_rows(eng.n, states))
+    rows, _ = nl.parse_replay_rows(eng.n, eng.half_komi, eng.reversible_limit, text)
+    return list(rows)
 
 
 def pack_rows(n: int, states) -> np.ndarray:
@@ -142,7 +142,7 @@ def main(argv=None) -> dict:
     # The selfplay actor's child capacity (256 from 6x6 up), so reanalyze
     # truncates no more often than selfplay on the same positions.
     max_children = max(cfg.max_children, 256 if n >= 6 else 0)
-    step = make_reanalyze_step(eng, make_net_evaluate(net_cfg, eng, device=dev), cfg.sampled_actions,
+    step = make_reanalyze_step(eng, make_net_evaluate(net_cfg, eng, device=dev, world=world), cfg.sampled_actions,
                                cfg.search_budget, max_children, cfg.max_depth, cfg.ube_target_beta)
     agent = new_agent(net_cfg, seed=args.seed, device=dev)
     poller = ckpt.LatestPoller(args.directory)  # each rank polls for itself (drivers/selfplay.py)

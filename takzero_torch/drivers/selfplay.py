@@ -106,7 +106,7 @@ def main(argv=None) -> dict:
     log.info("seed = %s", seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    sp = SelfplayEngine(eng, sp_cfg, make_net_evaluate(net_cfg, eng, device=dev), device=dev, world=world)
+    sp = SelfplayEngine(eng, sp_cfg, make_net_evaluate(net_cfg, eng, device=dev, world=world), device=dev, world=world)
     sp.reset(make_draws(gen, sp_cfg.batch, sp_cfg.max_children))
     agent = new_agent(net_cfg, seed=int(seed), device=dev)
     # Each rank polls the model files for itself, as in the JAX driver:

@@ -250,33 +250,45 @@ def folded_weights(cfg: NetConfig, bundle: dict) -> dict:
     return bundle["folded"]
 
 
-def make_net_evaluate(cfg: NetConfig, eng: TakEngine, device=None):
+def make_net_evaluate(cfg: NetConfig, eng: TakEngine, device=None, world=None):
     """Build ``net_evaluate(bundle, envs) -> (logits, value, variance)``.
 
     Runs on ``device`` (default ``cuda``; raises without CUDA), on the
     BN-folded weights in ``bundle["folded"]``.  The ensemble heads read the
     folded tower's core, so no second tower runs.
+
+    With ``world`` (a ``parallel.mesh.World``) ``envs`` are this rank's
+    rows: the networks (the tower, RND's, the ensemble heads) run at the
+    global batch's shape (``World.at_global_shape``), so that each row's
+    outputs are world 1's bits; the hash novelty reads the real rows only.
     """
     if cfg.novelty not in (*HASHED, "rnd", "ensemble", "none"):
         raise ValueError(f"unknown novelty {cfg.novelty!r}")
     dev = resolve_device(device)
     ensemble = cfg.novelty == "ensemble"
 
+    def networks(planes: torch.Tensor, bundle: dict):
+        policy, value, ube, *core = apply_folded(cfg, folded_weights(cfg, bundle), planes, with_core=ensemble)
+        if cfg.novelty == "rnd":
+            local = rnd_novelty(cfg, bundle, planes)
+        elif ensemble:
+            with conv_precision(cfg.compute_dtype):
+                local = torch.var(bundle["ensemble"](core[0]), dim=-1, correction=0)
+        else:  # a hash novelty is read below, on the real rows
+            local = torch.zeros_like(value)
+        return policy, value, ube, local
+
+    if world is not None:
+        networks = world.at_global_shape(networks)
+
     @torch.no_grad()
     def net_evaluate(bundle: dict, envs):
         if envs.ply.device.type != dev.type:
             raise ValueError(f"net_evaluate: envs on {envs.ply.device}, evaluator on {dev}")
         planes = state_to_planes(eng, envs)
-        policy, value, ube, *core = apply_folded(cfg, folded_weights(cfg, bundle), planes, with_core=ensemble)
+        policy, value, ube, local = networks(planes, bundle)
         if cfg.novelty in HASHED:
             local = hash_novelty(cfg, bundle, planes)
-        elif cfg.novelty == "rnd":
-            local = rnd_novelty(cfg, bundle, planes)
-        elif ensemble:
-            with conv_precision(cfg.compute_dtype):
-                local = torch.var(bundle["ensemble"](core[0]), dim=-1, correction=0)
-        else:
-            local = torch.zeros_like(value)
         variance = torch.maximum(torch.exp(ube), local).clamp(0.0, MAXIMUM_VARIANCE)
         return policy, value, variance
 

@@ -55,6 +55,30 @@ class World:
         """Every rank's rows of ``x`` in rank order: the global batch."""
         return multihost.all_gather_rows(x, dim) if self.active else x
 
+    def at_global_shape(self, fn):
+        """``fn(x, *args)`` on this rank's rows ``x``, run at the global
+        batch's shape: ``x`` written at its global offset ``rank * rows``
+        of a zero tensor ``size`` times as long, and only this rank's rows
+        of each output (a tensor or a tuple of them) kept.
+
+        The library picks a convolution's algorithm, and so its order of
+        summation, by the batch's shape: at the global shape every row
+        goes through the launch it has in world 1, at the place it has
+        there, so a bf16 network gives world 1's bits."""
+        if self.size == 1:
+            return fn
+
+        def run(x: torch.Tensor, *args):
+            b = x.shape[0]
+            full = x.new_zeros((b * self.size,) + tuple(x.shape[1:]))
+            full[self.rank * b : (self.rank + 1) * b] = x
+            out = fn(full, *args)
+            if isinstance(out, tuple):
+                return tuple(self.rows(o) for o in out)
+            return self.rows(out)
+
+        return run
+
 
 def shard_rows(x, rank: int, world: int, dim: int = 0):
     """Rows ``[rank * B / world, (rank + 1) * B / world)`` of ``x`` along

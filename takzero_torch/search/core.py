@@ -29,7 +29,7 @@ import torch
 
 from ..ops.topk import exact_top_k_unsorted
 from ..tak.engine import TakEngine
-from ..tak.state import TakState, where_state
+from ..tak.state import where_state
 from . import eval as ev
 from .tree import Tree
 
@@ -41,6 +41,22 @@ def _at(row: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return row.gather(1, slot[:, None])[:, 0]
 
 
+def add_path_visits(child_visit: torch.Tensor, path_node: torch.Tensor, path_slot: torch.Tensor) -> None:
+    """One visit on every (node, slot) edge of each lane's path, in place:
+    ``child_visit`` int32[B, M, C], the path [B, D] with -1 padding.
+    Padded entries add 0 to the scratch row (M - 1), so the update is one
+    unconditional scatter-add (``tools/scatter_variants.py`` times its
+    alternatives)."""
+    b, m, _ = child_visit.shape
+    live = path_node >= 0
+    bar = torch.arange(b, device=child_visit.device)[:, None].expand_as(path_node)
+    child_visit.index_put_(
+        (bar, torch.where(live, path_node, m - 1).to(torch.int64), path_slot.clamp(min=0).to(torch.int64)),
+        live.to(child_visit.dtype),
+        accumulate=True,
+    )
+
+
 def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
     """Build ``(simulate, simulate_batch)``.
 
@@ -49,6 +65,12 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
     (policy_logits [B, A], value [B], variance [B])``.  Expansion selects
     children with kernel A (``exact_top_k_unsorted``), once per
     ``apply_eval``.
+
+    As JAX's, the kernels work with any game: ``eng`` needs only batched
+    ``step(envs, action)``, ``terminal_kind(envs)`` and
+    ``legal_mask(envs)``, and its state is a NamedTuple of tensors with a
+    ``ply`` field and a ``map(fn)`` method, as ``tak.state.TakState``
+    (``tests/test_torch_reference_checks.py`` runs a SafeCrack engine).
     """
 
     def forward(tree: Tree, beta, forced_slot, skip_root: bool):
@@ -144,18 +166,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
         length = torch.where(clipped, max_depth, length)
         tree.overflow.add_(clipped.to(torch.int32))
 
-        # Visit increments along the path; padded entries add 0 to the
-        # scratch row.
-        live_path = path_node >= 0
-        tree.child_visit.index_put_(
-            (
-                bar[:, None].expand(b, max_depth),
-                torch.where(live_path, path_node, m - 1).to(torch.int64),
-                path_slot.clamp(min=0).to(torch.int64),
-            ),
-            live_path.to(torch.int32),
-            accumulate=True,
-        )
+        add_path_visits(tree.child_visit, path_node, path_slot)
 
         # Leaf environment and terminal discovery.
         parent_env = tree.node_env.map(lambda a: a[bar, leaf_parent])
@@ -386,7 +397,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
 
         # One evaluator call over all K*B leaves, stacked k-major as JAX's
         # scan stacks them.
-        envs = TakState(*(torch.cat(parts) for parts in zip(*(r["env_eval"] for r in recs))))
+        envs = type(recs[0]["env_eval"])(*(torch.cat(parts) for parts in zip(*(r["env_eval"] for r in recs))))
         logits, v_net, var_net = evaluator(envs)
         logits = logits.reshape(k, b, -1)
         v_net = v_net.float().reshape(k, b)
@@ -396,6 +407,9 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
             backward(tree, rec, v_net[i], var_net[i], False, mode="leaf")
         return tree
 
+    # The phases of one simulation, for the tools that time them
+    # (``tools/phase_cliff.py``), as JAX's ``simulate.phases``.
+    simulate.phases = dict(forward=forward, apply_eval=apply_eval, backward=backward)
     return simulate, simulate_batch
 
 

@@ -12,6 +12,9 @@ from __future__ import annotations
 import torch
 
 DISCOUNT = 0.997
+# Geometric-series sum of squared discounts (reference search/mod.rs:8;
+# declared for UBE-style horizon math, unused by the training loop).
+SERIES_DISCOUNT = 1.0 / (1.0 - DISCOUNT * DISCOUNT)
 CONTEMPT = -0.05
 
 VALUE, WIN, LOSS, DRAW = 0, 1, 2, 3
@@ -59,6 +62,15 @@ def argmin_eval(flag, ply, value, valid, dim=-1):
     tie = primary == primary.min(dim=dim, keepdim=True).values
     secondary = torch.where(tie & valid, secondary, _BIG)
     return secondary.argmin(dim=dim)
+
+
+def argmax_eval(flag, ply, value, valid, dim=-1):
+    """Index of the maximum (best) eval along ``dim`` among ``valid`` entries."""
+    primary, secondary = order_keys(flag, ply, value)
+    primary = torch.where(valid, primary, -_BIG)
+    tie = primary == primary.max(dim=dim, keepdim=True).values
+    secondary = torch.where(tie & valid, secondary, -_BIG)
+    return secondary.argmax(dim=dim)
 
 
 def take_eval(flag, ply, value, idx, dim=-1):

@@ -1,7 +1,8 @@
 """Root-level policy utilities for the batched trees.
 
 Counterpart of ``takzero_tpu/search/policy.py``: improved policy, UBE
-target, best / selfplay slot selection over the ``[B, C]`` root slots.
+target, UCT scores, best / selfplay slot selection over the ``[B, C]``
+root slots.
 Randomness comes in as tensors: ``select_selfplay_slot`` takes the Gumbel
 draw that JAX's ``jax.random.categorical`` adds to the log-weights.
 """
@@ -65,6 +66,26 @@ def ube_target(tree: Tree, beta: float) -> torch.Tensor:
     std = _take(ch["std"], score.argmax(-1))
     solved = (tree.root_flag != ev.VALUE) | ~tree.root_expanded()
     return torch.where(solved, 0.0, std * std)
+
+
+def uct_scores(tree: Tree, node_visit, beta) -> torch.Tensor:
+    """[B, C] classic UCT scores over the root slots, the reference's
+    declared-but-unused ``select_with_uct`` (policy.rs:104-117):
+    ``q + C*sqrt(ln(N)/n) + beta*std`` with ``EXPLORATION_COEFFICIENT=1``
+    (policy.rs:158-164); -inf on invalid slots and on winning children
+    unless the node is a proven loss (policy.rs:109).  ``node_visit`` and
+    ``beta`` are one number or one per root."""
+    ch = root_children(tree)
+    valid = ch["action"] >= 0
+    q = ev.negated_float(ch["flag"], ch["ply"], ch["value"])
+    dev = q.device
+    nv = torch.as_tensor(node_visit, dtype=torch.float32, device=dev).clamp(min=1.0)
+    if nv.dim() == 1:
+        nv = nv[:, None]
+    u = torch.sqrt(torch.log(nv) / ch["visit"].to(torch.float32).clamp(min=1e-9))
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=dev).expand(q.shape[0])
+    pruned = (ch["flag"] == ev.WIN) & (tree.root_flag != ev.LOSS)[:, None]
+    return torch.where(valid & ~pruned, q + u + beta[:, None] * ch["std"], -torch.inf)
 
 
 def select_best_slot(tree: Tree) -> torch.Tensor:

@@ -54,12 +54,13 @@ def initial_state_batch(n: int, batch: int, device="cpu") -> TakState:
 
 
 def where_state(mask: torch.Tensor, a: TakState, b: TakState) -> TakState:
-    """Per-lane select: ``a`` where ``mask`` ([B] bool) else ``b``."""
+    """Per-lane select: ``a`` where ``mask`` ([B] bool) else ``b``; a state
+    of ``a``'s type (any NamedTuple of tensors, as the search's states)."""
 
     def pick(x, y):
         return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
 
-    return TakState(*(pick(x, y) for x, y in zip(a, b)))
+    return type(a)(*(pick(x, y) for x, y in zip(a, b)))
 
 
 # ---------------------------------------------------------------------------

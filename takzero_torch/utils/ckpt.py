@@ -22,7 +22,9 @@ it; see ``models/agent.py``),
      "hash_bits": int32[2**bits / 32]}        # hash_bits: step checkpoints only
 
 read back with ``torch.load(..., weights_only=True)``.  A JAX run's
-weights come over as numpy arrays through ``takzero_torch/bridge.py``.
+file (flax msgpack of its bundle) is read too, into the same layout
+(``utils/flax_msgpack.py``, ``bridge.jax_checkpoint_state``), by every
+loader below: a TPU run's checkpoints load on the card.
 
 ``hash_log.bin`` is the JAX package's file, byte for byte: an append-only
 log of bit indices as uint32 little-endian.  Replaying it through
@@ -44,7 +46,9 @@ import threading
 import numpy as np
 import torch
 
+from ..bridge import jax_checkpoint_state
 from ..ops.bitset import bitset_set
+from . import flax_msgpack
 from .flush import drain_index_pairs
 
 _STEP_RE = re.compile(r"model_(\d+)\.ckpt$")
@@ -148,7 +152,7 @@ def save_checkpoint(directory, name: str, bundle: dict) -> pathlib.Path:
 
 
 class ForeignCheckpoint(ValueError):
-    """A file that is not in the port's format (a JAX run's flax msgpack)."""
+    """A file in neither the port's format nor a JAX run's flax msgpack."""
 
 
 class CheckpointMismatch(RuntimeError):
@@ -159,23 +163,26 @@ _ZIP_MAGIC = b"PK\x03\x04"  # torch.save writes a zip archive
 
 
 def read_checkpoint(path) -> dict:
-    """The tensors of a checkpoint file, on the CPU (tensors only are read).
+    """The tensors of a checkpoint file, on the CPU (tensors only are read):
+    the port's own, or a JAX run's flax msgpack file in the port's layout.
 
     Raises :class:`ForeignCheckpoint` for a file of another format; a torn
-    or truncated file of the port's raises ``ValueError`` or torch's
-    ``RuntimeError``.
+    or truncated file raises ``ValueError`` or torch's ``RuntimeError``.
     """
     with open(path, "rb") as f:
         head = f.read(len(_ZIP_MAGIC))
     if len(head) < len(_ZIP_MAGIC):
         raise ValueError(f"{path}: truncated checkpoint ({len(head)} bytes)")
-    if head != _ZIP_MAGIC:
-        raise ForeignCheckpoint(
-            f"{path} is not a takzero_torch checkpoint (torch.save zip). A JAX run's "
-            "flax msgpack file cannot be loaded here: carry its weights over as numpy "
-            "arrays with takzero_torch.bridge.from_jax_bundle"
-        )
-    return torch.load(path, map_location="cpu", weights_only=True)
+    if head == _ZIP_MAGIC:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if flax_msgpack.is_msgpack_map(head):
+        tree = flax_msgpack.restore(pathlib.Path(path).read_bytes())
+        if not isinstance(tree, dict) or not isinstance(tree.get("params"), dict):
+            raise ForeignCheckpoint(f"{path}: a msgpack file without a JAX bundle's 'params'")
+        return jax_checkpoint_state(tree)
+    raise ForeignCheckpoint(
+        f"{path} is neither a takzero_torch checkpoint (torch.save zip) nor a JAX run's flax msgpack file"
+    )
 
 
 def _bundle_tensors(bundle: dict) -> dict:
@@ -249,9 +256,10 @@ def load_checkpoint_partial(path, bundle: dict) -> dict:
     checkpoints of other architectures): a tensor of the file whose key the
     bundle lacks is ignored, and a weight the file lacks or holds in another
     shape or dtype keeps the bundle's value.  Each such key is logged.  A
-    file that is not in the port's format still raises
-    :class:`ForeignCheckpoint`: a partial load is no fallback for a file of
-    another format.
+    JAX run's flax file is read leaf by leaf in the port's layout, so the
+    same tolerance holds for it (``takzero_tpu/utils/ckpt.py:176``).  A
+    file of neither format still raises :class:`ForeignCheckpoint`: a
+    partial load is no fallback for a file of another format.
     """
     log = logging.getLogger("ckpt")
     have, targets = _file_tensors(read_checkpoint(path)), _bundle_tensors(bundle)

@@ -216,10 +216,17 @@ def test_latest_poller(tmp_path, caplog):
     path.write_bytes(good)
     os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 2_000_000))
     assert poller.reload_if_changed(actor, log)[1] and poller.reloads == 3
-    # A file of another format raises (a JAX learner's flax file).
+    # A JAX learner's flax file loads: its weights, as the bridge carries them.
     jcfg = jax_network.NetConfig(n=3, half_komi=0, filters=16, blocks=2, hash_bits=12)
-    jax_ckpt.save_checkpoint(tmp_path, "model_latest.ckpt", jax.tree.map(np.asarray, jax_new_agent(jcfg)))
-    with pytest.raises(ckpt.ForeignCheckpoint, match="bridge"):
+    jbundle = jax.tree.map(np.asarray, jax_new_agent(jcfg, seed=4))
+    jax_ckpt.save_checkpoint(tmp_path, "model_latest.ckpt", jax_ckpt.strip_hash_bits(jbundle))
+    os.utime(tmp_path / "model_latest.ckpt", ns=(st.st_atime_ns, st.st_mtime_ns + 4_000_000))
+    assert poller.reload_if_changed(actor, log)[1]
+    assert same_weights(actor, from_jax_bundle(jbundle, cfg, device="cpu"))
+    # A file of neither format raises.
+    (tmp_path / "model_latest.ckpt").write_bytes(b"GARBAGE!")
+    os.utime(tmp_path / "model_latest.ckpt", ns=(st.st_atime_ns, st.st_mtime_ns + 6_000_000))
+    with pytest.raises(ckpt.ForeignCheckpoint):
         poller.reload_if_changed(actor, log)
 
 

@@ -24,7 +24,8 @@ JAX package's, on the CPU at 3x3 with tiny nets.
   within that rounding.
 * Each ``run`` writes the reference CSV header and one row per step;
   ``drivers.eee`` parses JAX's flags into the same calls, refuses
-  ``--devices``, and ``seen-ratio --model`` refuses a flax msgpack file.
+  ``--devices``, and ``seen-ratio --model`` refuses a JAX checkpoint of
+  another width than its preset's.
 
 JAX runs its step functions jitted as its ``run`` loops do; its ``run``
 loops themselves are not run (their own tests are marked slow).
@@ -458,7 +459,9 @@ def test_driver_refuses_devices_and_foreign_checkpoints(tmp_path, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE")
     jcfg = jax_network.NetConfig(**TINY, novelty="simhash", hash_bits=12)
     foreign = jax_ckpt.save_checkpoint(str(tmp_path), "model_jax.ckpt", jax_agent.new_agent(jcfg))
-    with pytest.raises(ckpt.ForeignCheckpoint):
+    # A JAX run's file is read (tests/test_torch_flax_ckpt.py); one of
+    # another width than the preset's does not fit.
+    with pytest.raises(ckpt.CheckpointMismatch):
         torch_driver.main(["seen-ratio", "--model", str(foreign), "--net", "tiny3", "--device", "cpu"])
     # The port's own checkpoint: the ratios, their CSV and figure.
     path = ckpt.save_checkpoint(tmp_path, "model_0000000.ckpt", new_agent(torch_driver_config(["--net", "tiny3"]),

@@ -143,8 +143,8 @@ def test_compete_draws_from_a_generator():
 
 def test_load_checkpoint_partial(tmp_path, caplog):
     """Keys the file lacks or holds in another shape keep the bundle's
-    values, each logged; keys the bundle lacks are ignored; a file of
-    another format raises ``ForeignCheckpoint``."""
+    values, each logged; keys the bundle lacks are ignored; a torn flax
+    file raises, and a file of another format ``ForeignCheckpoint``."""
     cfg = NET_PRESETS["tiny3"]
     src = new_agent(cfg, seed=1, device="cpu")
     path = ckpt.save_checkpoint(tmp_path, "a.ckpt", src)
@@ -173,7 +173,10 @@ def test_load_checkpoint_partial(tmp_path, caplog):
     full = ckpt.load_checkpoint_partial(path, new_agent(cfg, seed=3, device="cpu"))
     for k, v in full["net"].state_dict().items():
         assert torch.equal(v, want[k]), k
-    (tmp_path / "foreign.ckpt").write_bytes(b"\x82\xa6params\x80")  # a msgpack map
+    (tmp_path / "foreign.ckpt").write_bytes(b"\x82\xa6params\x80")  # a msgpack map cut short
+    with pytest.raises(ValueError, match="truncated"):
+        ckpt.load_checkpoint_partial(tmp_path / "foreign.ckpt", dst)
+    (tmp_path / "foreign.ckpt").write_bytes(b"\x81\xa4nets\x80")  # a msgpack map, not a JAX bundle
     with pytest.raises(ckpt.ForeignCheckpoint):
         ckpt.load_checkpoint_partial(tmp_path / "foreign.ckpt", dst)
 

@@ -1,8 +1,8 @@
 """Import hygiene and device defaults of the port.
 
-``takzero_torch`` and ``chip_smoke.py`` import no JAX, no flax and nothing
-of ``takzero_tpu`` (checked in a fresh interpreter, since this test
-process has JAX loaded).  The entry points run on ``cuda`` unless the
+``takzero_torch`` and ``chip_smoke.py`` import no JAX, no flax, no
+msgpack and nothing of ``takzero_tpu`` (checked in a fresh interpreter,
+since this test process has JAX loaded).  The entry points run on ``cuda`` unless the
 caller asks for the CPU, and raise when CUDA is missing.
 """
 
@@ -24,7 +24,7 @@ names = [m.name for m in pkgutil.walk_packages(takzero_torch.__path__, "takzero_
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "takzero_tpu"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "takzero_tpu"))
 print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
@@ -54,6 +54,14 @@ MULTI_DEVICE = [
     "takzero_torch.tools.multihost_scaling",
 ]
 
+# The last JAX modules: the flax checkpoint reader, Dirichlet noise and
+# the pool-size tools (the native loader's module was there before).
+POOL_TOOLS = ["pool_cliff", "phase_cliff", "op_cliff", "rw_cliff", "scatter_variants", "slope_trace"]
+LAST_MODULES = [
+    "takzero_torch.utils.flax_msgpack", "takzero_torch.search.noise", "takzero_torch.data.native_loader",
+    "takzero_torch.tools.cliff_timing", *(f"takzero_torch.tools.{t}" for t in POOL_TOOLS),
+]
+
 
 def test_port_imports_no_jax():
     out = subprocess.run(
@@ -61,11 +69,12 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 89, out.stdout  # every module of the port was imported
+    assert count >= 98, out.stdout  # every module of the port was imported
     names = out.stdout.split("] ", 1)[1].split()
     assert set(EEE_AND_VISUALIZERS) <= set(names)
     assert set(ORACLE_AND_TOOLS) <= set(names)
     assert set(MULTI_DEVICE) <= set(names)
+    assert set(LAST_MODULES) <= set(names)
 
 
 def test_entry_points_refuse_devices():
@@ -184,5 +193,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         reuse_ab.main(["--ckpt", str(tmp_path / "m.ckpt"), "--net", "tiny3"])
     with pytest.raises(RuntimeError, match="CUDA"):
         anchor.main(["--quick"])
+    # The pool-size tools time the card.
+    import importlib
+
+    for tool in POOL_TOOLS:
+        main = importlib.import_module(f"takzero_torch.tools.{tool}").main
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--pools", "12,24", "--batch", "2", "--children", "8"]
+                 + (["--out", str(tmp_path / "trace")] if tool == "slope_trace" else []))
     assert sorted(p.name for p in tmp_path.iterdir()) == ["replays.txt"]
     assert resolve_device("cpu") == torch.device("cpu")

@@ -11,8 +11,9 @@ Mirrors the JAX driver's tests (``tests/test_drivers.py``,
   JAX's ``read_buffer_lengths`` reads), and leaves a step checkpoint whose
   bitset equals the one rebuilt from ``hash_log.bin`` (JAX's reader);
 * a later run resumes from that checkpoint;
-* checkpoints round-trip, a weights-only file keeps the bitset, and a
-  flax msgpack file is refused with a message naming the numpy bridge;
+* checkpoints round-trip, a weights-only file keeps the bitset; a JAX
+  learner's flax msgpack file loads (the bridge's weights and seen-set),
+  one of another width is refused, and so is a file of neither format;
 * ``takzero_torch.bench`` benches a move from a learner checkpoint.
 """
 
@@ -31,6 +32,7 @@ from takzero_tpu.tak import engine as jax_engine
 from takzero_tpu.train.data import random_pretraining_targets as jax_random_targets
 from takzero_tpu.utils import ckpt as jax_ckpt
 from takzero_torch import bench
+from takzero_torch.bridge import from_jax_bundle
 from takzero_torch.config import NET_PRESETS
 from takzero_torch.data.native_loader import make_batch_native
 from takzero_torch.drivers import learn
@@ -151,11 +153,24 @@ def test_checkpoints_round_trip_and_refuse_flax_files(tmp_path):
     with pytest.raises(RuntimeError):
         ckpt.load_checkpoint(tmp_path / "model_0000005.ckpt", wrong)
 
-    # A JAX learner's flax msgpack file.
+    # A JAX learner's flax msgpack file loads; one of another width, or a
+    # file of neither format, is refused and changes nothing.
     jcfg = jax_network.NetConfig(n=3, half_komi=0, filters=16, blocks=2, hash_bits=12)
-    jax_ckpt.save_checkpoint(tmp_path, "jax.ckpt", jax.tree.map(np.asarray, jax_agent.new_agent(jcfg)))
-    with pytest.raises(ValueError, match="bridge"):
-        ckpt.load_checkpoint(tmp_path / "jax.ckpt", b)
+    jbundle = jax.tree.map(np.asarray, jax_agent.new_agent(jcfg))
+    jax_ckpt.save_checkpoint(tmp_path, "jax.ckpt", jbundle)
+    ckpt.load_checkpoint(tmp_path / "jax.ckpt", b)
+    want = from_jax_bundle(jbundle, cfg, device="cpu")
+    for (k, x), y in zip(b["net"].state_dict().items(), want["net"].state_dict().values()):
+        assert torch.equal(x, y), k
+    assert torch.equal(b["hash_bits"], want["hash_bits"]) and torch.equal(b["hash_matrix"], want["hash_matrix"])
+    jax_ckpt.save_checkpoint(tmp_path, "jax_wide.ckpt", jax.tree.map(
+        np.asarray, jax_agent.new_agent(jax_network.NetConfig(n=3, half_komi=0, filters=24, blocks=2, hash_bits=12))))
+    with pytest.raises(ckpt.CheckpointMismatch):
+        ckpt.load_checkpoint(tmp_path / "jax_wide.ckpt", b)
+    (tmp_path / "other.ckpt").write_bytes(b"not a checkpoint")
+    with pytest.raises(ckpt.ForeignCheckpoint):
+        ckpt.load_checkpoint(tmp_path / "other.ckpt", b)
+    assert torch.equal(b["net"].policy.bias, want["net"].policy.bias)
 
 
 def test_bench_runs_a_move_from_a_learner_checkpoint(tmp_path, monkeypatch):

@@ -28,6 +28,10 @@ once for the module; the JAX side runs on the virtual CPU mesh of
   no counterpart).
 * ``coordinated_backpressure``, ``process_batch_slice`` and the drivers'
   ``--devices`` errors against JAX's functions on the same inputs.
+* The actors' padded evaluator (``World.at_global_shape``): on two ranks
+  the bf16 tiny3 evaluator gives world 1's bits for every row; the rows
+  sit at their global offset with zeros elsewhere, and only the real rows
+  reach the hash.
 """
 
 import argparse
@@ -56,10 +60,13 @@ from takzero_tpu.train import learner as jax_learner
 from takzero_tpu.train.data import random_pretraining_targets as jax_random_targets
 from takzero_torch.bridge import from_jax_bundle
 from takzero_torch.config import NET_PRESETS
+from takzero_torch.models import agent as torch_agent
 from takzero_torch.models.network import NetConfig
 from takzero_torch.parallel import coordinator as co
 from takzero_torch.parallel import mesh as pm
 from takzero_torch.parallel import multihost
+from takzero_torch.tak.engine import engine as torch_engine
+from takzero_torch.tak.state import where_state
 
 import torch_ranks
 
@@ -151,6 +158,20 @@ def _hash_planes(n: int = 16):
     return np.asarray(jax_loader.make_batch_native(eng, "\n".join(lines) + "\n", rng).planes)
 
 
+def _random_envs(cfg, batch: int, seed: int, plies: int = 8):
+    """Positions of random playouts of random length on the CPU."""
+    eng = torch_engine(cfg.n, half_komi=cfg.half_komi)
+    gen = torch.Generator().manual_seed(seed)
+    envs = eng.initial(batch)
+    stop = torch.randint(0, plies + 1, (batch,), generator=gen)
+    for p in range(plies):
+        legal = eng.legal_mask(envs)
+        live = (p < stop) & (eng.terminal_kind(envs) == 0) & legal.any(-1)
+        act = torch.multinomial((legal | ~legal.any(-1, keepdim=True)).float(), 1, generator=gen)[:, 0]
+        envs = where_state(live, eng.step(envs, act), envs)
+    return envs
+
+
 @pytest.fixture(scope="module")
 def mesh():
     return jax_mesh.make_mesh(2)
@@ -167,6 +188,8 @@ def cases(mesh, tmp_path_factory):
         inputs.append((jcfg, tcfg, jbundle, jb, train_ube))
         torch_cases["train"].append({"cfg": tcfg, "bundle": jax.tree.map(np.asarray, jbundle),
                                      "batch": [np.asarray(x) for x in jb], "train_ube": train_ube})
+    torch_cases["evaluate"] = {"cfg": NET_PRESETS["tiny3"], "seed": 12,
+                               "envs": [x.numpy() for x in _random_envs(NET_PRESETS["tiny3"], 16, seed=13)]}
     planes = _hash_planes()
     hash_bundles = []
     for novelty, bits in HASH_CASES:
@@ -358,3 +381,52 @@ def test_shard_rows_takes_each_ranks_rows():
     assert pm.shard_rows(x, 0, 2).tolist() == [list(range(12))]
     with pytest.raises(ValueError, match="not divisible"):
         pm.shard_rows(x, 0, 5, dim=1)
+
+
+def test_padded_evaluator_on_two_ranks_gives_world_one_bits(cases):
+    _, ranks = cases
+    cfg = NET_PRESETS["tiny3"]
+    assert cfg.compute_dtype == torch.bfloat16
+    envs = _random_envs(cfg, 16, seed=13)
+    evaluate = torch_agent.make_net_evaluate(cfg, torch_engine(cfg.n, half_komi=cfg.half_komi), device="cpu")
+    want = [x.numpy() for x in evaluate(torch_agent.new_agent(cfg, seed=12, device="cpu"), envs)]
+    for r in ranks:
+        for name, got, w in zip(("logits", "value", "variance"), r["evaluate"], want):
+            assert got.tobytes() == w.tobytes(), f"rank {r['rank']} {name}"
+
+
+def test_at_global_shape_places_rows_at_their_offset():
+    seen = []
+
+    def fn(x, scale):
+        seen.append(x.clone())
+        return x * scale, x.sum(-1)
+
+    world = pm.World(rank=1, size=3)
+    x = torch.arange(1, 9, dtype=torch.float32).reshape(2, 4)
+    out, total = world.at_global_shape(fn)(x, 2.0)
+    (full,) = seen
+    assert full.shape == (6, 4)
+    assert torch.equal(full[2:4], x) and not full[:2].any() and not full[4:].any()
+    assert torch.equal(out, 2 * x) and torch.equal(total, x.sum(-1))
+    assert pm.World().at_global_shape(fn) is fn
+
+
+def test_padded_evaluator_hashes_only_real_rows(monkeypatch):
+    cfg = NET_PRESETS["tiny3"]
+    eng = torch_engine(cfg.n, half_komi=cfg.half_komi)
+    envs = _random_envs(cfg, 8, seed=14)
+    bundle = torch_agent.new_agent(cfg, seed=15, device="cpu")
+    hashed, net_rows = [], []
+    hash_indices, apply_folded = torch_agent.hash_indices, torch_agent.apply_folded
+    monkeypatch.setattr(torch_agent, "hash_indices", lambda c, b, p: hashed.append(p.clone()) or hash_indices(c, b, p))
+    monkeypatch.setattr(torch_agent, "apply_folded",
+                        lambda c, w, p, **k: net_rows.append(p.shape[0]) or apply_folded(c, w, p, **k))
+    whole = torch_agent.make_net_evaluate(cfg, eng, device="cpu")(bundle, envs)
+    rows = envs.map(lambda x: x[4:])
+    padded = torch_agent.make_net_evaluate(cfg, eng, device="cpu", world=pm.World(rank=1, size=2))(bundle, rows)
+    assert net_rows == [8, 8]
+    assert [h.shape[0] for h in hashed] == [8, 4]
+    assert torch.equal(hashed[1], hashed[0][4:])
+    for a, b in zip(padded, whole):
+        assert torch.equal(a, b[4:])

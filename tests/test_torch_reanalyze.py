@@ -1,7 +1,7 @@
 """The port's reanalyze actor against the JAX package's.
 
-* Replay explosion: ``parse_replay_positions`` (Python, all replays
-  stepped together on the port's engine) against JAX's C++ one on replays
+* Replay explosion: ``parse_replay_positions`` (the port's binding of its
+  copy of the C++ loader) against JAX's on replays
   of JAX's own selfplay at 3x3 and 4x4, with malformed lines mixed in:
   states and plies exactly; ``pack_rows`` against JAX's.
 * ``PositionBuffer.sample`` picks JAX's rows for one seed.

@@ -12,8 +12,10 @@ import numpy as np
 import torch
 
 from takzero_torch.bridge import from_jax_bundle
-from takzero_torch.models.agent import hash_update, new_agent
+from takzero_torch.models.agent import hash_update, make_net_evaluate, new_agent
 from takzero_torch.parallel import multihost
+from takzero_torch.tak.engine import engine
+from takzero_torch.tak.state import TakState
 from takzero_torch.train.learner import Batch, make_optimizer, make_train_step
 
 
@@ -47,6 +49,12 @@ def parallel_cases(path: str) -> dict:
         out["hash"].append(bundle["hash_bits"].numpy().copy())
     agent = new_agent(cases["fresh_cfg"], seed=3, device="cpu")
     out["fresh"] = _host(agent["net"].state_dict())
+    # The padded evaluator on this rank's rows, its outputs gathered.
+    cfg = cases["evaluate"]["cfg"]
+    envs = TakState(*(torch.from_numpy(x) for x in cases["evaluate"]["envs"]))
+    evaluate = make_net_evaluate(cfg, engine(cfg.n, half_komi=cfg.half_komi), device="cpu", world=world)
+    outs = evaluate(new_agent(cfg, seed=cases["evaluate"]["seed"], device="cpu"), envs.map(world.rows))
+    out["evaluate"] = [world.gather(x).numpy() for x in outs]
     # The collectives, each with rank-dependent inputs.
     r = world.rank
     out["scalar"] = multihost.broadcast_scalar(1000 + r)
