@@ -184,8 +184,8 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    (``ops/_cpp_build.py``: the oracle library and ``tak_mcts_bench``,
    seconds) and 2 random 6x6 games of the port's engine on the card against
    the oracle, every legal mask, state and result equal; (b)
-   ``tools.make_puzzles`` at 6x6 (16 games, batch 64, budget 256, C=128,
-   no deep pass, 20,000 verifier nodes, target 2, 40 s): kernel A budget+1
+   ``tools.make_puzzles`` at 6x6 (8 games, batch 64, budget 256, C=128,
+   no deep pass, 20,000 verifier nodes, target 2, 20 s): kernel A budget+1
    launches a solve and B none, the last solve's 257 inputs equal
    ``topk_plain``'s at k = 1, 128 and A, A timed at f32[64, 9036], k=128
    beside ``torch.topk``, every written row re-checked on the oracle
@@ -239,7 +239,26 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    ``tools.phase_cliff`` at the same pools: ms a simulation at each M and
    its growth a pool doubling, kernel A once a simulation (read from the
    counters);
-18. a ``kernels`` JSON line: each kernel with what it replaces, its
+18. the search's choice of top-k (``search/core.py`` ``make_topk``:
+   ``pallas``, kernel A; ``lax`` and ``grouped``, the library top-k with
+   ``lax.top_k``'s order and JAX's two-stage grouped one; ``exact_ref``,
+   ``topk_plain``), each chosen through ``topk=``, never the environment
+   (the script refuses to start with ``TAKZERO_TOPK`` set): (a) each impl
+   at phase 3's f32[128, 9036], k=256, on its masked logits and special
+   rows: the values bit for bit and the index sets of rows without a tie
+   at the k-th value equal ``topk_plain``'s, ``lax`` and ``grouped`` in
+   the stable sort's order on tied rows (and whether a bare
+   ``torch.topk`` is, reported), each timed by the CUDA-graph method; (b)
+   one float32 selfplay move at the flagship's widths (16x256, SimHash
+   2^26, 128 games, k=64, C=256, tree reuse; budget cut to 384, the least
+   at k=64; the random policy head scaled by 1/20, see
+   ``run_topk_moves``) under ``pallas``, ``lax`` and ``grouped`` from the
+   same weights, openings and per-action noise: on every game without a
+   selection tie the actions and per-action root visits equal and root
+   values within 1e-5 (the tied games counted), kernel A budget+1
+   launches under ``pallas`` and none otherwise, B budget+1 under each;
+   wall seconds and CUDA-event ms per move, and a ``topk_ab`` line;
+19. a ``kernels`` JSON line: each kernel with what it replaces, its
    launches on the move program (``launches``), on the learner
    (``learner_launches``), on the selfplay driver and on reanalyze
    (``selfplay_driver_launches``, ``reanalyze_launches``), on the serve
@@ -268,8 +287,10 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    [64, 1296] x [1296, 32] (``at_reuse_ab``), and on phase 16: both at
    selfplay's rank shapes (``at_rank_selfplay``), the launches of each
    rank (``launches_per_rank``) and the learner's gradient all-reduce
-   (``learner_allreduce_ms``), and on phase 17 (``jax_checkpoint_launches``,
-   ``pool_tools_launches``).
+   (``learner_allreduce_ms``), on phase 17 (``jax_checkpoint_launches``,
+   ``pool_tools_launches``), and on phase 18b
+   (``topk_ab_launches_per_move``) with each impl's µs per call at
+   f32[128, 9036] (``topk_impls_us_per_call``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
@@ -291,6 +312,7 @@ import functools
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -495,6 +517,7 @@ def check_topk(eng, envs, gen, dev) -> dict:
     )
     out["bound_ms"], out["bound_by"] = bound_ms(b * a * 4 + b * k * 8, b * a)
     log({"phase": "kernel A exact_top_k_unsorted", **out})
+    out["rows"] = {"main-path rows": main_rows, "special rows": x}  # phase 18a's inputs
     return out
 
 
@@ -1377,7 +1400,6 @@ def recording_kernel_inputs(calls: list, last: int | None = None):
     recent ones; the calls still launch."""
     import takzero_torch.models.agent as agent
     import takzero_torch.search.core as core
-    import takzero_torch.search.serve as serve
     from takzero_torch.ops import simhash, topk
 
     def record(kernel, x, arg):
@@ -1393,13 +1415,13 @@ def recording_kernel_inputs(calls: list, last: int | None = None):
         record("B", x, m)
         return simhash.simhash_pack(x, m)
 
-    saved = core.exact_top_k_unsorted, serve.exact_top_k_unsorted, agent.simhash_pack
-    core.exact_top_k_unsorted = serve.exact_top_k_unsorted = rec_a
-    agent.simhash_pack = rec_b
+    # The serve chunk takes its top-k from core's make_topk too.
+    saved = core.exact_top_k_unsorted, agent.simhash_pack
+    core.exact_top_k_unsorted, agent.simhash_pack = rec_a, rec_b
     try:
         yield
     finally:
-        core.exact_top_k_unsorted, serve.exact_top_k_unsorted, agent.simhash_pack = saved
+        core.exact_top_k_unsorted, agent.simhash_pack = saved
 
 
 def midgame_tps(eng, gen, dev, plies: int = 24) -> str:
@@ -2645,9 +2667,9 @@ def build_oracle_and_fuzz(dev, games: int = 2) -> dict:
 
 
 def run_make_puzzles(dev, out_dir) -> dict:
-    """15b: ``tools.make_puzzles`` at 6x6, full width, depth cut: 16 games,
+    """15b: ``tools.make_puzzles`` at 6x6, full width, depth cut: 8 games,
     batch 64, budget 256, C=128, no deep pass, 20,000 verifier nodes,
-    target 2, 40 s.  Kernel A must launch budget + 1 times a solve (the
+    target 2, 20 s.  Kernel A must launch budget + 1 times a solve (the
     counters) and B never; the inputs of the last solve must equal
     ``topk_plain``'s at k = 1, 128 and A; A timed at that shape beside
     ``torch.topk``; every written row re-checks on the oracle."""
@@ -2681,10 +2703,10 @@ def run_make_puzzles(dev, out_dir) -> dict:
     mp.make_solver = timed_solver
     try:
         with recording_kernel_inputs(calls, last=PROVER_BUDGET + 1):
-            res = mp.main(["--out", str(db), "--size", "6", "--games", "16", "--budget", str(PROVER_BUDGET),
+            res = mp.main(["--out", str(db), "--size", "6", "--games", "8", "--budget", str(PROVER_BUDGET),
                            "--batch", str(PROVER_BATCH), "--max-children", str(PROVER_CHILDREN),
                            "--deep-budget", "0", "--verify-nodes", str(VERIFY_NODES), "--target", "2",
-                           "--time-limit", "40", "--seed", "0", "--device", str(dev)])
+                           "--time-limit", "20", "--seed", "0", "--device", str(dev)])
     finally:
         mp.make_solver = real
     torch.cuda.synchronize()
@@ -2712,8 +2734,8 @@ def run_make_puzzles(dev, out_dir) -> dict:
         if al is not None and (mp.verify_avoidance(orc, st, {2, 4, 6}, VERIFY_NODES) or (None,))[0] != al:
             raise AssertionError(f"make_puzzles: avoidance {tps} is not depth {al} on the oracle")
     out = {"phase": "oracle: make_puzzles (device prover)", "card": card_line(),
-           "cuts": {"games": 16, "budget": PROVER_BUDGET, "batch": PROVER_BATCH, "max_children": PROVER_CHILDREN,
-                    "deep_budget": 0, "verify_nodes": VERIFY_NODES, "target": 2, "time_limit": 40},
+           "cuts": {"games": 8, "budget": PROVER_BUDGET, "batch": PROVER_BATCH, "max_children": PROVER_CHILDREN,
+                    "deep_budget": 0, "verify_nodes": VERIFY_NODES, "target": 2, "time_limit": 20},
            "candidates": res["candidates"], "solves": res["solves"], "seconds_per_solve": solve_s,
            "seconds": res["seconds"], "rows": len(rows), "written": res["summary"], "discards": res["discards"],
            "launches": launches, "launches_per_solve": {k: v / res["solves"] for k, v in launches.items()},
@@ -3566,11 +3588,240 @@ def run_pool_tools(dev) -> dict:
     return out
 
 
+TOPK_IMPLS = ("pallas", "lax", "grouped", "exact_ref")
+# Phase 18b's cut: k=64 makes 384 (k log2 k) the least budget; the
+# flagship's is 768.  The random net's policy head is scaled by 1/20, so
+# that its priors do not underflow to 0.0 (see run_topk_moves).
+TOPK_MOVE = {"sampled": 64, "budget": 384, "policy_scale": 0.05}
+
+
+def check_topk_impls(rows: dict, k: int = 256) -> dict:
+    """18a: each of ``make_topk``'s impls on phase 3's f32[128, 9036]
+    ``rows`` (masked logits and special rows) against ``topk_plain``: the values as
+    a multiset bit for bit, the index sets equal on rows without a tie at
+    the k-th value; on tied rows whether the order equals the stable
+    sort's (the gate for ``lax``, whose contract it is), and the same for
+    a bare ``torch.topk(sorted=True)`` (reported).  Each timed on the
+    masked logits by phase 3's CUDA-graph method."""
+    import torch
+
+    from takzero_torch.ops import topk
+    from takzero_torch.search.core import make_topk
+
+    out = {"phase": "top-k impls (18a)", "card": card_line(), "k": k, "rows": {}, "us_per_call": {}}
+    for what, x in rows.items():
+        pv, pi = topk.topk_plain(x, k)
+        kth = torch.sort(x, dim=-1, descending=True).values[:, k - 1:k]
+        tied = (x == kth).sum(-1) > 1
+        stable = torch.sort(-x, dim=-1, stable=True).indices[:, :k].to(torch.int32)
+        row = {"shape": list(x.shape), "tied_rows": int(tied.sum())}
+        for impl in TOPK_IMPLS:
+            vals, idx = make_topk(impl)(x, k)
+            bits = lambda v: torch.sort(v.contiguous().view(torch.int32), -1).values  # noqa: E731
+            if not torch.equal(bits(vals), bits(pv)):
+                raise AssertionError(f"18a {impl} ({what}): values differ from topk_plain's")
+            same_set = (torch.sort(idx.long(), -1).values == pi.long()).all(-1)
+            if not bool(same_set[~tied].all()):
+                raise AssertionError(f"18a {impl} ({what}): index sets differ on untied rows "
+                                     f"{(~same_set & ~tied).nonzero()[:, 0].tolist()}")
+            if not torch.equal(x.gather(-1, idx.long()), vals):
+                raise AssertionError(f"18a {impl} ({what}): indices do not point at their values")
+            if impl in ("lax", "grouped"):
+                ties_stable = bool((idx[tied] == stable[tied]).all())
+                if not ties_stable:
+                    raise AssertionError(f"18a {impl} ({what}): tied rows not in the stable sort's order")
+                row[f"{impl}_tied_rows_equal_stable_sort"] = ties_stable
+        bare = torch.topk(x, k, sorted=True).indices.to(torch.int32)
+        row["torch_topk_tied_rows_equal_stable_sort"] = bool((bare[tied] == stable[tied]).all())
+        out["rows"][what] = row
+    x = rows["main-path rows"]
+    for impl in TOPK_IMPLS:
+        fn = make_topk(impl)
+        out["us_per_call"][impl] = device_ms(lambda: fn(x, k))[0] * 1e3
+    for sort in (False, True):
+        out["us_per_call"][f"torch.topk sorted={sort}"] = device_ms(lambda: torch.topk(x, k, sorted=sort))[0] * 1e3
+    out["us_per_call"]["kernel A call time"] = call_ms(lambda: topk.exact_top_k_unsorted(x, k)) * 1e3
+    log(out)
+    return out
+
+
+def _place_by_action(noise, layout):
+    """Per-action noise f32[B, A] placed in a tree's slot order (``layout``
+    i32[B, C], -1 for an empty slot, whose noise is 0)."""
+    import torch
+
+    return torch.where(layout >= 0, noise.gather(1, layout.clamp(min=0).long()), 0.0)
+
+
+def selection_tie_games(tree):
+    """bool[B]: the games whose tree holds, below the root, a visited child
+    whose prior equals a valid sibling's.  Unvisited siblings share their
+    value and std, so such a child was picked from a tie of equal scores,
+    which ``argmax`` gives to the lower slot, here as in JAX: the slot
+    order, which the top-k impls set differently, decided it.  (At the
+    root the Gumbel search forces every pick.)"""
+    import torch
+
+    rows = slice(1, tree.child_prob.shape[1] - 1)  # not the root, not the scratch row
+    valid = (tree.child_action[:, rows] >= 0) & tree.node_live[:, rows, None]
+    sentinel = -1.0 - torch.arange(valid.shape[-1], device=valid.device, dtype=torch.float32)
+    prob, order = torch.sort(torch.where(valid, tree.child_prob[:, rows], sentinel), dim=-1)
+    visited = tree.child_visit[:, rows].gather(-1, order) > 0
+    tie = (prob[..., 1:] == prob[..., :-1]) & (visited[..., 1:] | visited[..., :-1])
+    return tie.flatten(1).any(-1)
+
+
+def run_topk_moves(dev, filters: int = 256, blocks: int = 16, batch: int = 128, hash_bits: int = 26,
+                   sampled: int = TOPK_MOVE["sampled"], budget: int = TOPK_MOVE["budget"],
+                   policy_scale: float = TOPK_MOVE["policy_scale"]) -> dict:
+    """18b: one selfplay move at the flagship's widths (6x6, 16x256,
+    SimHash 2^hash_bits, 128 games, C=256, tree reuse) in float32, under
+    ``pallas``, ``lax`` and ``grouped`` in turn, each through the
+    ``topk=`` argument from the same weights, openings and draws, after a
+    warm-up move of each at k=2, budget 2.
+
+    The root's Gumbel draws are per slot, in JAX as here, and the impls
+    order the root's children differently, so the same draws would give
+    the actions other noise.  Each impl gets the same per-action noise,
+    placed in the slot order its expansion gives the root (predicted from
+    one evaluation of the roots and checked against the searched tree).
+    The random net's policy head is scaled by ``policy_scale``: unscaled,
+    its logits span hundreds, most priors are exactly 0.0, and every game
+    holds a selection tie among them (``selection_tie_games``), which
+    leaves nothing to compare.
+    Gates: the actions legal; on the games without a selection tie
+    (``selection_tie_games`` under either impl, or a final pick between
+    children of equal, maximal visits) the actions and the per-action root
+    visits equal across impls and the root values within 1e-5; kernel A
+    budget+1 launches under ``pallas`` and none otherwise, kernel B
+    budget+1 under each.  Reported: the games with such a tie and how many
+    of them split, wall seconds and CUDA-event milliseconds per move."""
+    import dataclasses
+
+    import torch
+
+    from takzero_torch.config import NET_PRESETS, selfplay_preset
+    from takzero_torch.models.agent import make_net_evaluate, new_agent
+    from takzero_torch.search.core import make_topk
+    from takzero_torch.selfplay import SelfplayEngine, gumbel_noise, make_draws
+    from takzero_torch.tak.engine import engine
+    from takzero_torch.tools.cliff_timing import sync
+
+    with float32_presets("net6_simhash"):
+        cfg = dataclasses.replace(NET_PRESETS["net6_simhash"], filters=filters, blocks=blocks,
+                                  hash_bits=hash_bits)
+    eng = engine(cfg.n, half_komi=cfg.half_komi)
+    agent = new_agent(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        for param in agent["net"].policy.parameters():
+            param.mul_(policy_scale)
+    agent.pop("folded")  # refolded on first use
+    evaluate = make_net_evaluate(cfg, eng, device=dev)
+    sp_cfg = selfplay_preset("net6_simhash", batch=batch, sampled_actions=sampled, search_budget=budget,
+                             tree_reuse=True)
+    c, a = sp_cfg.max_children, eng.num_actions
+    gen = torch.Generator(device=dev).manual_seed(18)
+    draws = make_draws(gen, batch, c)
+    noise = {"gumbel_root": gumbel_noise(gen, (batch, a)), "gumbel_sample": gumbel_noise(gen, (batch, a))}
+    out = {"phase": "top-k impls: one move each (18b)", "card": card_line(), "net": net_label(cfg),
+           "dtype": "float32", "batch": batch, "sampled": sampled, "budget": budget, "children": c,
+           "cut": f"budget {budget} (flagship 768), float32 (flagship bf16)", "policy_scale": policy_scale,
+           "impls": {}}
+    results = {}
+    t_phase = time.perf_counter()
+    for impl in ("pallas", "lax", "grouped"):
+        warm = SelfplayEngine(eng, dataclasses.replace(sp_cfg, sampled_actions=2, search_budget=2), evaluate,
+                              device=dev, topk=impl)
+        warm.reset(draws)
+        warm.move(warm.envs, warm.tree, agent, draws)
+        sp = SelfplayEngine(eng, sp_cfg, evaluate, device=dev, topk=impl)
+        sp.reset(draws)
+        logits, _, _ = evaluate(agent, sp.envs)
+        masked = torch.where(eng.legal_mask(sp.envs), logits.float(), NEG).contiguous()
+        vals, idx = make_topk(impl)(masked, c)
+        layout = torch.where(vals > NEG / 2, idx, -1)
+        move_draws = dict(draws, **{key: _place_by_action(v, layout) for key, v in noise.items()})
+        tree_in = sp.tree
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if dev.type == "cuda" else []
+        sync(dev)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        for event in events[:1]:
+            event.record()
+        _, _, packed, root = sp.move(sp.envs, tree_in, agent, move_draws)
+        packed = packed.cpu()  # the actor's one readback
+        for event in events[1:]:
+            event.record()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        want = {"exact_top_k_unsorted": budget + 1 if impl == "pallas" else 0, "simhash_pack": budget + 1}
+        if launches != want:
+            raise AssertionError(f"18b {impl}: launches {launches}, expected {want}")
+        if not torch.equal(root["action"], layout):
+            raise AssertionError(f"18b {impl}: the searched root's slot order differs from the predicted one")
+        action = packed[:, 0].long()
+        legal = eng.legal_mask(sp.envs).gather(1, action.to(dev)[:, None])[:, 0]
+        if not bool(legal.all()):
+            raise AssertionError(f"18b {impl}: illegal actions in lanes {(~legal).nonzero()[:, 0].tolist()}")
+        visits = torch.zeros((batch, a + 1), dtype=torch.int32, device=dev)
+        visits.scatter_(1, torch.where(layout >= 0, layout, a).long(), root["visit"])
+        results[impl] = {"action": action, "visits": visits[:, :a].cpu(), "root_value": tree_in.root_value.cpu(),
+                         "ties": selection_tie_games(tree_in).cpu()}
+        out["impls"][impl] = {"s_per_move": wall, "launches": launches,
+                              "event_ms_per_move": events[0].elapsed_time(events[1]) if events else None}
+    ref = results["pallas"]
+    for impl in ("lax", "grouped"):
+        got = results[impl]
+        # Where no root child reaches the sampling threshold, the move takes
+        # the most visited child, and a tie among them goes to the lower
+        # slot (``select_best_slot``, JAX's ``argmax`` too).
+        top = ref["visits"].max(-1).values
+        final_tie = (got["action"] != ref["action"]) & \
+            (ref["visits"].gather(1, ref["action"][:, None])[:, 0] == top) & \
+            (ref["visits"].gather(1, got["action"][:, None])[:, 0] == top)
+        tied = ref["ties"] | got["ties"] | final_tie
+        split = (got["action"] != ref["action"]) | (got["visits"] != ref["visits"]).any(-1)
+        if bool((split & ~tied).any()):
+            raise AssertionError(f"18b {impl}: actions or per-action root visits differ from pallas's in games "
+                                 f"{(split & ~tied).nonzero()[:, 0].tolist()}, which hold no selection tie")
+        if not bool((~tied).any()):
+            raise AssertionError(f"18b {impl}: every game holds a selection tie; nothing is compared")
+        gap = float((got["root_value"] - ref["root_value"])[~tied].abs().max())
+        if not gap <= 1e-5:
+            raise AssertionError(f"18b {impl}: root values {gap} from pallas's (limit 1e-5)")
+        out["impls"][impl].update(games_compared=int((~tied).sum()), games_with_a_selection_tie=int(tied.sum()),
+                                  tie_games_split=int((split & tied).sum()), root_value_gap_to_pallas=gap)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    return out
+
+
+def run_topk_ab(dev, rows: dict) -> dict:
+    """Phase 18: 18a on phase 3's ``rows``, 18b and the ``topk_ab`` line."""
+    impls = check_topk_impls(rows)
+    moves = run_topk_moves(dev)
+    calls = moves["budget"] + 1  # one expansion a simulation, under every impl
+    ab = {"phase": "topk_ab", "card": card_line(), "budget": moves["budget"], "impls": {}}
+    for impl, move in moves["impls"].items():
+        us = impls["us_per_call"][impl]
+        ab["impls"][impl] = {"us_per_call": us, "s_per_move": move["s_per_move"],
+                             "event_ms_per_move": move["event_ms_per_move"],
+                             "topk_device_ms_per_move": us * calls / 1e3}
+    log(ab)
+    return {"impls": impls, "moves": moves, "ab": ab}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    if os.environ.get("TAKZERO_TOPK"):
+        print(f"chip_smoke: TAKZERO_TOPK={os.environ['TAKZERO_TOPK']!r} is set; every phase gates kernel A's "
+              "launches on the default impl (pallas), and phase 18 chooses each impl through topk=, so unset it",
               file=sys.stderr)
         return 1
     if not (Path(__file__).resolve().parent / "takzero_torch").is_dir():
@@ -3631,6 +3882,7 @@ def main() -> int:
     check_noise_and_uct(dev)
     pool_tools = run_pool_tools(dev)
     log({"phase": "last modules done", "seconds": time.perf_counter() - t17})
+    topk_ab = run_topk_ab(dev, topk_out["rows"])
 
     kernels = []
     for name, out, source, replaces in (
@@ -3702,6 +3954,9 @@ def main() -> int:
         # Phase 17, read from the counters in this run.
         entry["jax_checkpoint_launches"] = jax_ckpt["launches"][name]
         entry["pool_tools_launches"] = {k: v[name] for k, v in pool_tools["launches"].items()}
+        # Phase 18b: one move under each top-k impl, read from the counters.
+        entry["topk_ab_launches_per_move"] = {k: v["launches"][name] for k, v in topk_ab["moves"]["impls"].items()}
+    kernels[0]["topk_impls_us_per_call"] = topk_ab["impls"]["us_per_call"]
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())
     log({"kernels": kernels})

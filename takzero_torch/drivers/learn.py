@@ -14,6 +14,11 @@ from two fixed reference batches of random games (ply 8 and ply 60, 64
 positions each) once before the loop and after every chunk that ends on
 a multiple of 100 steps (learn/src/rnd_normalization.rs:48-77).
 
+With ``TAKZERO_LEARN_TIMING`` set, every chunk logs JAX's
+``chunk timing: assemble=... stack+dispatch=... flush=... (c=N)`` line:
+the host's batch assembly, the hash and train-step dispatch, and the
+previous chunk's metric read.
+
 With ``--devices N`` (or under ``drivers/multihost.py``) the learner is N
 data-parallel ranks: each trains on its rows of every batch
 (``train/learner.py``), rank 0 alone tails the target files and
@@ -33,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import time
 
 import numpy as np
@@ -339,14 +345,19 @@ def main(argv=None) -> dict:
                 drained += sp_buffer.drain_batch(cfg.batch_size)
         # One parse and one transfer for the whole chunk.
         batches = batch_of(drained, splits=c)
-        assemble_s += time.perf_counter() - t_a
+        t_b = time.perf_counter()
+        assemble_s += t_b - t_a
         pair = fresh_pair(batches.planes, 1)
         metrics = train_chunk(bundle, opt, batches, train_ube=True)
+        t_c = time.perf_counter()
         first_step = model_steps + 1
         model_steps += c
         pending_metrics.append((first_step, c, metrics, pair))
         if len(pending_metrics) > 1:
             flush_metrics(pending_metrics.pop(0))
+        if os.environ.get("TAKZERO_LEARN_TIMING"):
+            log.info("chunk timing: assemble=%.3fs stack+dispatch=%.3fs flush=%.3fs (c=%d)",
+                     t_b - t_a, t_c - t_b, time.perf_counter() - t_c, c)
         if rnd_refs is not None and model_steps % 100 == 0:
             refresh_rnd(model_steps)
         if coord and model_steps % cfg.steps_per_save == 0:

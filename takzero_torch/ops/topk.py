@@ -17,6 +17,13 @@ places the outputs in index order with one block-wide scan.  It is
 memory-bound: at the main path's f32[128, 9036], k=256 it must move 4.9 MB,
 about 1.5 us at the H100's 3.35 TB/s.
 
+The search's other choices of top-k (``search/core.py`` ``make_topk``,
+``TAKZERO_TOPK``) are library calls, as their JAX counterparts are XLA's
+``lax.top_k`` outside any Pallas kernel: :func:`lax_top_k` (sorted, with
+``lax.top_k``'s order) and :func:`exact_top_k_unsorted_grouped` (JAX's
+two-stage grouped top-k).  :func:`exact_top_k_unsorted_reference` is
+:func:`topk_plain` under the name of JAX's contract function.
+
 Rows whose row and candidates fit in shared memory (8 bytes an entry:
 6x6, A=9036, 72 KB; 7x7, A=24843, 194 KB) take that kernel.  Wider rows
 (8x8, A=65216, 510 KB) take a second kernel in the same source that
@@ -28,6 +35,7 @@ f32[128, 65216], k=256: 33.7 MB, about 10.0 us at 3.35 TB/s.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -46,6 +54,48 @@ def topk_plain(x: torch.Tensor, k: int):
     order = torch.sort(-x, dim=-1, stable=True).indices[..., :k]
     top = torch.sort(order, dim=-1).values
     return x.gather(-1, top), top.to(torch.int32)
+
+
+# Under JAX's contract name (``takzero_tpu/ops/topk.py:231``).
+exact_top_k_unsorted_reference = topk_plain
+
+
+def lax_top_k(x: torch.Tensor, k: int):
+    """(vals f32[..., k], idx i32[..., k]): the k largest along the last
+    axis, sorted descending, with ``jax.lax.top_k``'s order: floats in
+    their total order (+0.0 above -0.0) and ties to the lower index.
+
+    ``torch.topk`` documents no order among equal values, so it runs on
+    int64 keys that cannot tie: the float's bits made monotone in the high
+    half, the reversed index in the low half.
+    """
+    bits = x.contiguous().view(torch.int32)
+    high = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    pos = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
+    idx = torch.topk(high * 2**32 + (2**31 - 1 - pos), k, dim=-1, sorted=True).indices
+    return x.gather(-1, idx), idx.to(torch.int32)
+
+
+def exact_top_k_unsorted_grouped(x: torch.Tensor, k: int, groups: int = 8):
+    """JAX's two-stage grouped top-k (``takzero_tpu/ops/topk.py:202``),
+    step for step: each row split into ``groups`` chunks (clamped to
+    ``A // k``, the last padded with -inf), the top k of each chunk, then
+    the top k of the ``groups * k`` survivors.  Exact, since every global
+    top-k entry is in its chunk's top k; sorted descending, int32 indices.
+    """
+    b, a = x.shape
+    if a < k:
+        raise ValueError(f"exact_top_k_unsorted_grouped: need k <= A, got k={k}, A={a}")
+    groups = max(1, min(groups, a // k))
+    if groups == 1:
+        return lax_top_k(x, k)
+    xp = F.pad(x, (0, (-a) % groups), value=-torch.inf)
+    sub = xp.reshape(b, groups, -1)
+    v1, i1 = lax_top_k(sub, k)  # [B, G, k]
+    base = torch.arange(groups, dtype=torch.int32, device=x.device)[None, :, None] * sub.shape[-1]
+    v2, i2 = lax_top_k(v1.reshape(b, groups * k), k)
+    idx = (i1 + base).reshape(b, groups * k).gather(-1, i2.to(torch.int64))
+    return v2, idx
 
 
 def exact_top_k_unsorted(x: torch.Tensor, k: int):

@@ -4,8 +4,8 @@ Counterpart of ``takzero_tpu/search/core.py`` (``forward`` :101,
 ``apply_eval`` :305, ``backward`` :430, ``simulate`` :588,
 ``simulate_batch`` :596): one ``simulate`` call runs one simulation on every
 tree of the batch, with the same PUCT selection, visit accounting, guarded
-expansion through the exact unsorted top-k (kernel A,
-:func:`takzero_torch.ops.topk.exact_top_k_unsorted`) and the exact
+expansion through the top-k that :func:`make_topk` chooses (by default
+kernel A, :func:`takzero_torch.ops.topk.exact_top_k_unsorted`) and the exact
 win/loss/draw solver.  ``simulate_batch`` is the serve path's K
 simulations per network call (the reference's ``virtual`` feature,
 mcts.rs:268-328): K descents of the same trees, each known stop backed up
@@ -23,11 +23,12 @@ Trees are updated in place.
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
 
-from ..ops.topk import exact_top_k_unsorted
+from ..ops.topk import exact_top_k_unsorted, exact_top_k_unsorted_grouped, lax_top_k, topk_plain
 from ..tak.engine import TakEngine
 from ..tak.state import where_state
 from . import eval as ev
@@ -57,14 +58,48 @@ def add_path_visits(child_visit: torch.Tensor, path_node: torch.Tensor, path_slo
     )
 
 
-def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
+def _kernel_a(x: torch.Tensor, k: int):
+    """Kernel A under this module's name, looked up at each call, so that a
+    caller may put a recording or counting version in its place
+    (``chip_smoke.py``, the tests)."""
+    return exact_top_k_unsorted(x, k)
+
+
+def make_topk(impl: str = "auto") -> Callable:
+    """Expansion top-k: ``(masked_logits f32[B, A], k) -> (vals, idx i32)``.
+
+    JAX's choices under JAX's names (``takzero_tpu/search/core.py:48``), so
+    that one ``TAKZERO_TOPK`` drives both packages.  The search is
+    child-slot-permutation-invariant, so any exact k-largest selection
+    works:
+
+    * ``pallas``: kernel A (``exact_top_k_unsorted``) on a CUDA tensor,
+      its plain version on a CPU tensor; ascending index order;
+    * ``lax``: the library top-k with ``lax.top_k``'s contract, sorted
+      descending (``ops.topk.lax_top_k``);
+    * ``grouped``: JAX's two-stage grouped library top-k, sorted;
+    * ``exact_ref``: ``topk_plain`` on any device.
+
+    ``auto`` reads ``TAKZERO_TOPK`` and falls back to ``pallas`` (JAX falls
+    back to ``pallas`` on its TPU and to ``lax`` elsewhere).
+    """
+    if impl == "auto":
+        impl = os.environ.get("TAKZERO_TOPK", "") or "pallas"
+    impls = {"pallas": _kernel_a, "lax": lax_top_k, "grouped": exact_top_k_unsorted_grouped,
+             "exact_ref": topk_plain}
+    if impl not in impls:
+        raise ValueError(f"unknown top-k impl {impl!r}: expected auto or one of {sorted(impls)}")
+    return impls[impl]
+
+
+def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk: str = "auto"):
     """Build ``(simulate, simulate_batch)``.
 
     ``simulate(tree, beta, forced_slot=None, *, skip_root=False)`` and
     ``simulate_batch(tree, beta, k)``.  ``evaluator(envs) ->
     (policy_logits [B, A], value [B], variance [B])``.  Expansion selects
-    children with kernel A (``exact_top_k_unsorted``), once per
-    ``apply_eval``.
+    children with ``make_topk(topk)`` (by default kernel A), once per
+    ``apply_eval``; the choice is fixed here, as in JAX.
 
     As JAX's, the kernels work with any game: ``eng`` needs only batched
     ``step(envs, action)``, ``terminal_kind(envs)`` and
@@ -72,6 +107,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
     ``ply`` field and a ``map(fn)`` method, as ``tak.state.TakState``
     (``tests/test_torch_reference_checks.py`` runs a SafeCrack engine).
     """
+    topk_fn = make_topk(topk)
 
     def forward(tree: Tree, beta, forced_slot, skip_root: bool):
         b, m, c = tree.child_visit.shape
@@ -237,7 +273,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
 
         legal = eng.legal_mask(env_eval)  # [B, A]
         masked_logits = torch.where(legal, logits.float(), NEG).contiguous()
-        top_vals, top_idx = exact_top_k_unsorted(masked_logits, c)
+        top_vals, top_idx = topk_fn(masked_logits, c)
         valid_child = top_vals > NEG / 2
         mx = torch.where(valid_child, top_vals, -torch.inf).max(-1, keepdim=True).values
         ex = torch.where(valid_child, torch.exp(top_vals - mx), 0.0)
@@ -422,11 +458,11 @@ def _betas(tree: Tree, beta) -> torch.Tensor:
     return torch.full((b,), float(beta), dtype=torch.float32, device=dev)
 
 
-def make_simulate(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
+def make_simulate(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk: str = "auto"):
     """Build ``simulate(tree, beta, forced_slot, skip_root) -> Tree``."""
-    return make_kernels(eng, evaluator, max_depth)[0]
+    return make_kernels(eng, evaluator, max_depth, topk)[0]
 
 
-def make_simulate_batch(eng: TakEngine, evaluator: Callable, max_depth: int = 48):
+def make_simulate_batch(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk: str = "auto"):
     """Build ``simulate_batch(tree, beta, k) -> Tree`` (the serve-path kernel)."""
-    return make_kernels(eng, evaluator, max_depth)[1]
+    return make_kernels(eng, evaluator, max_depth, topk)[1]

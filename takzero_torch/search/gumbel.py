@@ -64,8 +64,9 @@ def make_gumbel_search(
     sampled_actions: int = 64,
     budget: int = 768,
     max_depth: int = 48,
+    topk: str = "auto",
 ):
-    simulate = make_simulate(eng, evaluator, max_depth=max_depth)
+    simulate = make_simulate(eng, evaluator, max_depth=max_depth, topk=topk)
     ranks, alive, halve, cums = sh_schedule(sampled_actions, budget)
     k = sampled_actions
 

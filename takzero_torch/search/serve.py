@@ -17,7 +17,8 @@ Four phases, as in JAX:
   evaluator);
 * C, leaf statistics and a deduplicated expansion: paths that stopped at
   the same (parent, slot) form one group whose first path expands, through
-  ONE batched kernel-A call over f32[B*K, A];
+  ONE batched top-k call over f32[B*K, A] (kernel A unless ``topk``
+  chooses another, ``core.make_topk``);
 * D, a level-synchronised backward from the deepest stop to the root; its
   one host read is the deepest level, ``jmax``.
 
@@ -37,10 +38,9 @@ from typing import Callable
 import torch
 from torch.profiler import record_function
 
-from ..ops.topk import exact_top_k_unsorted
 from ..tak.engine import TakEngine
 from . import eval as ev
-from .core import NEG, _betas
+from .core import NEG, _betas, make_topk
 from .tree import Tree
 
 
@@ -50,13 +50,15 @@ def _first_true(same: torch.Tensor) -> torch.Tensor:
     return same.to(torch.uint8).argmax(-1)
 
 
-def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int = 64):
+def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int = 64, topk: str = "auto"):
     """Build ``serve_chunk(tree, beta) -> Tree`` running ``k`` simulations.
 
     Lanes whose root is expanded run ``k`` simulations each (run one plain
     ``simulate`` on a fresh tree first, as the TEI driver does); lanes with
     an unexpanded root (a terminal position) are left as they are.
+    Expansion uses ``make_topk(topk)``.
     """
+    topk_fn = make_topk(topk)
     K = k
 
     def serve_chunk(tree: Tree, beta) -> Tree:
@@ -216,10 +218,10 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
             tree.child_value[bar, w_node, leaf_slot] = new_leaf_v
             tree.child_std[bar, w_node, leaf_slot] = new_leaf_s
 
-            # Expansion: one top-k (kernel A) over all leaves.
+            # Expansion: one top-k (kernel A by default) over all leaves.
             legal = eng.legal_mask(env_eval)  # [B*K, A]
             masked_logits = torch.where(legal, logits.float(), NEG).contiguous()
-            top_vals, top_idx = exact_top_k_unsorted(masked_logits, c)
+            top_vals, top_idx = topk_fn(masked_logits, c)
             top_vals = top_vals.reshape(b, K, c)
             top_idx = top_idx.reshape(b, K, c)
             valid_child = top_vals > NEG / 2

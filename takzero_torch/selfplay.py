@@ -127,11 +127,14 @@ class SelfplayEngine:
     ``evaluator_factory(agent, envs) -> (logits, value, variance)`` is the
     network evaluator (:func:`takzero_torch.models.agent.make_net_evaluate`).
     With ``world`` (a ``parallel.mesh.World``) the device holds this rank's
-    rows of the games; ``envs`` and ``tree`` are the rank's.
+    rows of the games; ``envs`` and ``tree`` are the rank's.  ``topk`` is
+    the search's expansion top-k (``search.core.make_topk``).
     """
 
-    def __init__(self, eng: TakEngine, cfg: SelfplayConfig, evaluator_factory, device=None, world=None):
+    def __init__(self, eng: TakEngine, cfg: SelfplayConfig, evaluator_factory, device=None, world=None,
+                 topk: str = "auto"):
         self.eng = eng
+        self.topk = topk
         self.cfg = cfg
         self.device = resolve_device(device)
         self.evaluator_factory = evaluator_factory
@@ -269,7 +272,7 @@ class SelfplayEngine:
         cfg, eng = self.cfg, self.eng
         evaluator = lambda e: self.evaluator_factory(agent, e)  # noqa: E731
         search = make_gumbel_search(
-            eng, evaluator, cfg.sampled_actions, cfg.search_budget, cfg.max_depth
+            eng, evaluator, cfg.sampled_actions, cfg.search_budget, cfg.max_depth, self.topk
         )
         if not cfg.tree_reuse:
             tree = init_tree(eng, envs, cfg.max_nodes, cfg.max_children)

@@ -22,10 +22,14 @@ reference), which ignores contention, i.e. stays generous to the reference.
 
 The JSON keeps JAX's keys, except that the network's rate is named for the
 device it ran on (``host_nn_positions_per_s_torch_cuda`` on the card).
-There is no ``--write``: JAX's writes ``BASELINE.json``, the JAX package's
-record, which the port leaves as it is.
+``--write`` records the numbers under ``"published"`` in the JSON file
+``--baseline`` names (default ``build/baseline_h100.json`` in the
+repository, git-ignored).  JAX's ``--write`` updates the repository's
+``BASELINE.json``, but that file is the JAX package's record of a CPU
+anchor, which the port leaves as it is.
 
 Usage: python -m takzero_torch.tools.anchor [--quick] [--device cuda]
+    [--write] [--baseline PATH]
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import json
 import os
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
@@ -42,6 +47,7 @@ from ..device import resolve_device
 from ..ops import _cpp_build
 
 ACTOR_PROCESSES = 20  # 10 selfplay + 10 reanalyze, README.md:128-135
+BASELINE = Path(__file__).resolve().parents[2] / "build" / "baseline_h100.json"
 
 
 def measure_search(quick: bool) -> dict:
@@ -116,6 +122,9 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--quick", action="store_true")
     parser.add_argument("--device", default="cuda", help="torch device of the network half (default cuda)")
+    parser.add_argument("--write", action="store_true", help="record into --baseline's ['published']")
+    parser.add_argument("--baseline", default=str(BASELINE),
+                        help="JSON file --write updates (default build/baseline_h100.json; never BASELINE.json)")
     args = parser.parse_args(argv)
     dev = resolve_device(args.device)
 
@@ -137,6 +146,12 @@ def main(argv=None) -> dict:
                   "README.md:128-135, host cores) — ignores core contention, i.e. generous to the reference",
     }
     print(json.dumps(anchor, indent=2))
+    if args.write:
+        path = Path(args.baseline)
+        data = json.loads(path.read_text()) if path.exists() else {}
+        data.setdefault("published", {}).update(anchor)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(data, indent=2) + "\n")
     return anchor
 
 

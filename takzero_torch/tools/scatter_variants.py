@@ -2,7 +2,8 @@
 
 Counterpart of ``takzero_tpu/tools/scatter_variants.py``.  One
 simulation adds a visit to each (node, slot) edge of every lane's path:
-[B, D] element adds into the int32 [B, M, C] visit pool.  The port's own
+[B, D] element adds into the [B, M, C] visit pool (int32, or ``--dtype``
+float32 or bfloat16, as JAX's ``--dtype``).  The port's own
 form (``search/core.py`` ``add_path_visits``: ``index_put_`` with
 ``accumulate=True``, padding routed to the scratch row) is timed beside:
 
@@ -19,7 +20,8 @@ pass, the path rolled each iteration) and the profiler's device kernels
 and device time an update; every variant must give the core form's array
 exactly, and the tool raises if one does not.
 
-    python -m takzero_torch.tools.scatter_variants [--pools 776,1552,3104] [--iters 64] [--device cuda]
+    python -m takzero_torch.tools.scatter_variants [--pools 776,1552,3104] [--iters 64]
+        [--dtype int32|float32|bfloat16] [--device cuda]
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def paths(b: int, m: int, c: int, d: int, dev: torch.device, seed: int = 0):
 
 
 def variants(m: int, c: int) -> dict:
-    """name -> update(visit [B, M, C] int32, path_node, path_slot), in place."""
+    """name -> update(visit [B, M, C] of the pool's dtype, path_node, path_slot), in place."""
 
     def clip0(a, node, slot):
         bar = torch.arange(a.shape[0], device=a.device)[:, None].expand_as(node)
@@ -70,12 +72,15 @@ def variants(m: int, c: int) -> dict:
             "onehot row": onehot_row, "onehot einsum": onehot_einsum}
 
 
-def check_variants(b: int, m: int, c: int, d: int, dev: torch.device) -> None:
+DTYPES = {"int32": torch.int32, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_variants(b: int, m: int, c: int, d: int, dev: torch.device, dtype=torch.int32) -> None:
     """Every variant's array equals the core form's after one update."""
     node, slot = paths(b, m, c, d, dev)
     out = {}
     for name, fn in variants(m, c).items():
-        a = torch.zeros((b, m, c), dtype=torch.int32, device=dev)
+        a = torch.zeros((b, m, c), dtype=dtype, device=dev)
         fn(a, node, slot)
         out[name] = a
     want = out["core.py index_put"]
@@ -92,16 +97,18 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--children", type=int, default=256)
     p.add_argument("--depth", type=int, default=48)
+    p.add_argument("--dtype", default="int32", choices=DTYPES, help="the pool's dtype (default int32)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
     dev, card = ct.device_and_card(args.device)
     b, c, d = args.batch, args.children, args.depth
+    dtype = DTYPES[args.dtype]
     rows = []
     for m in ct.pools(args.pools):
-        check_variants(b, m, c, d, dev)
+        check_variants(b, m, c, d, dev, dtype)
         node, slot = paths(b, m, c, d, dev)
         for name, fn in variants(m, c).items():
-            a = torch.zeros((b, m, c), dtype=torch.int32, device=dev)
+            a = torch.zeros((b, m, c), dtype=dtype, device=dev)
             rolled = [(node.roll(i, 1), slot.roll(i, 1)) for i in range(args.iters)]
 
             def loop(fn=fn, a=a, rolled=rolled):
@@ -111,7 +118,7 @@ def main(argv=None) -> list[dict]:
             us = ct.ms_per_call(loop, dev) * 1e3 / args.iters
             prof = ct.kernel_profile(loop, dev)
             row = {"M": m, "variant": name, "us_per_iter": us, **{k: v / args.iters for k, v in prof.items()},
-                   "equal_to_core": True, "device": str(dev), "card": card}
+                   "equal_to_core": True, "dtype": args.dtype, "device": str(dev), "card": card}
             rows.append(row)
             print(json.dumps(row), flush=True)
     return rows
