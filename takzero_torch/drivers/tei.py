@@ -50,6 +50,7 @@ from ..tak.engine import engine
 from ..tak.moves import action_to_ptn, ptn_to_action
 from ..tak.tps import tps_to_state
 from ..utils import ckpt
+from ..utils.profile import host_item, span
 from . import refuse_unported
 
 SIM_CHUNK = 128
@@ -143,106 +144,110 @@ class TeiEngine:
         return self.eng.step(state, torch.tensor([action], device=self.device))
 
     def cmd_position(self, parts: list[str]):
-        self.ensure_ready()
-        i = 0
-        if parts[i] == "startpos":
-            state = self.eng.initial(1, self.device)
-            key = ("startpos",)
-            i += 1
-        elif parts[i] == "tps":
-            # TPS is three whitespace-separated fields.
-            tps = " ".join(parts[i + 1 : i + 4])
-            state = tps_to_state(self.cfg.n, tps).map(lambda x: x[None].to(self.device))
-            key = ("tps", tps)
-            i += 4
-        else:
-            raise ValueError(f"bad position: {parts}")
-        moves: list[str] = []
-        if i < len(parts) and parts[i] == "moves":
-            moves = parts[i + 1 :]
-            for mv in moves:
-                state = self._step(state, ptn_to_action(self.cfg.n, mv))
-        self.position = state
+        with span("tei.position"):
+            self.ensure_ready()
+            i = 0
+            if parts[i] == "startpos":
+                state = self.eng.initial(1, self.device)
+                key = ("startpos",)
+                i += 1
+            elif parts[i] == "tps":
+                # TPS is three whitespace-separated fields.
+                tps = " ".join(parts[i + 1 : i + 4])
+                state = tps_to_state(self.cfg.n, tps).map(lambda x: x[None].to(self.device))
+                key = ("tps", tps)
+                i += 4
+            else:
+                raise ValueError(f"bad position: {parts}")
+            moves: list[str] = []
+            if i < len(parts) and parts[i] == "moves":
+                moves = parts[i + 1 :]
+                for mv in moves:
+                    state = self._step(state, ptn_to_action(self.cfg.n, mv))
+            self.position = state
 
-        # Tree reuse: when the new position extends the searched one,
-        # descend through the extra moves on the device
-        # (tei/src/main.rs:174-201); only the ok flag is read.
-        new_hist = key + tuple(moves)
-        tree = self.tree
-        if tree is not None and self.tree_history is not None:
-            old = self.tree_history
-            if new_hist[: len(old)] == old and len(new_hist) > len(old):
-                for mv in new_hist[len(old) :]:
-                    tree, ok = descend_device(tree, ptn_to_action(self.cfg.n, mv))
-                    if not bool(ok):
-                        tree = None
-                        break
-            elif new_hist != old:
+            # Tree reuse: when the new position extends the searched one,
+            # descend through the extra moves on the device
+            # (tei/src/main.rs:174-201); only the ok flag is read.
+            new_hist = key + tuple(moves)
+            tree = self.tree
+            if tree is not None and self.tree_history is not None:
+                old = self.tree_history
+                if new_hist[: len(old)] == old and len(new_hist) > len(old):
+                    for mv in new_hist[len(old) :]:
+                        tree, ok = descend_device(tree, ptn_to_action(self.cfg.n, mv))
+                        if not host_item(ok):
+                            tree = None
+                            break
+                elif new_hist != old:
+                    tree = None
+            else:
                 tree = None
-        else:
-            tree = None
-        self.tree = tree
-        self.tree_history = new_hist
+            self.tree = tree
+            self.tree_history = new_hist
 
     def cmd_go(self, parts: list[str]):
-        self.ensure_ready()
-        if int(self.eng.terminal_kind(self.position)[0]) != 0:
-            # No legal moves: any move string would be illegal. "0000" is
-            # the null-move token.
-            self.send("info string position is terminal")
-            self.send("bestmove 0000")
-            return
-        opts = {}
-        it = iter(parts)
-        for tok in it:
-            if tok in ("wtime", "btime", "winc", "binc", "movetime", "nodes"):
-                opts[tok] = int(next(it))
-            elif tok == "infinite":
-                opts["infinite"] = True
+        with span("tei.go"):
+            self.ensure_ready()
+            if host_item(self.eng.terminal_kind(self.position)[0]) != 0:
+                # No legal moves: any move string would be illegal. "0000" is
+                # the null-move token.
+                self.send("info string position is terminal")
+                self.send("bestmove 0000")
+                return
+            opts = {}
+            it = iter(parts)
+            for tok in it:
+                if tok in ("wtime", "btime", "winc", "binc", "movetime", "nodes"):
+                    opts[tok] = int(next(it))
+                elif tok == "infinite":
+                    opts["infinite"] = True
 
-        to_move = int(self.position.to_move[0])
-        if "movetime" in opts:
-            budget_s = opts["movetime"] / 1000.0
-        elif "wtime" in opts or "btime" in opts:
-            t = opts.get("wtime" if to_move == 0 else "btime", 10_000)
-            inc = opts.get("winc" if to_move == 0 else "binc", 0)
-            budget_s = (t / 10.0 + 3.0 * inc / 4.0) / 1000.0
-        else:
-            budget_s = 5.0
-        max_nodes = opts.get("nodes", 10**9)
-
-        tree = self.tree
-        if tree is None or tree.max_nodes != MAX_NODES:
-            tree = init_tree(self.eng, self.position, MAX_NODES, 256 if self.cfg.n >= 6 else 128)
-        start = time.time()
-        nodes = 0
-        solved = False
-        infinite = bool(opts.get("infinite"))
-        while True:
-            if solved and infinite:
-                # Root proven: under `infinite` bestmove may only follow
-                # `stop`, so idle-poll instead of burning simulations.
-                time.sleep(0.05)
+            to_move = host_item(self.position.to_move[0])
+            if "movetime" in opts:
+                budget_s = opts["movetime"] / 1000.0
+            elif "wtime" in opts or "btime" in opts:
+                t = opts.get("wtime" if to_move == 0 else "btime", 10_000)
+                inc = opts.get("winc" if to_move == 0 else "binc", 0)
+                budget_s = (t / 10.0 + 3.0 * inc / 4.0) / 1000.0
             else:
-                tree = self._run(tree)
-                # One device-to-host copy per chunk: the solve state, the
-                # root eval and the PV.
-                pk = info_pack(tree).cpu().numpy()
-                nodes += SIM_CHUNK
-                self._info(pk, nodes, time.time() - start)
-                solved = int(pk[0]) != ev.VALUE
-            if self._poll_commands(infinite=infinite) is not None:
-                break  # stop (quit re-queued for the main loop)
-            if infinite:
-                continue
-            if time.time() - start >= budget_s or nodes >= max_nodes or solved:
-                break
-        action = int(slot_action(tree, select_best_slot(tree))[0])
-        self.tree = tree  # kept for descend on the next position command
-        if action < 0:  # unexpanded root (defensive; terminal gated above)
-            self.send("bestmove 0000")
-            return
-        self.send(f"bestmove {action_to_ptn(self.cfg.n, action)}")
+                budget_s = 5.0
+            max_nodes = opts.get("nodes", 10**9)
+
+            tree = self.tree
+            if tree is None or tree.max_nodes != MAX_NODES:
+                tree = init_tree(self.eng, self.position, MAX_NODES, 256 if self.cfg.n >= 6 else 128)
+            start = time.time()
+            nodes = 0
+            solved = False
+            infinite = bool(opts.get("infinite"))
+            while True:
+                if solved and infinite:
+                    # Root proven: under `infinite` bestmove may only follow
+                    # `stop`, so idle-poll instead of burning simulations.
+                    time.sleep(0.05)
+                else:
+                    tree = self._run(tree)
+                    # One device-to-host copy per chunk: the solve state, the
+                    # root eval and the PV.
+                    pack = info_pack(tree)
+                    with span("sync"):
+                        pk = pack.cpu().numpy()
+                    nodes += SIM_CHUNK
+                    self._info(pk, nodes, time.time() - start)
+                    solved = int(pk[0]) != ev.VALUE
+                if self._poll_commands(infinite=infinite) is not None:
+                    break  # stop (quit re-queued for the main loop)
+                if infinite:
+                    continue
+                if time.time() - start >= budget_s or nodes >= max_nodes or solved:
+                    break
+            action = host_item(slot_action(tree, select_best_slot(tree))[0])
+            self.tree = tree  # kept for descend on the next position command
+            if action < 0:  # unexpanded root (defensive; terminal gated above)
+                self.send("bestmove 0000")
+                return
+            self.send(f"bestmove {action_to_ptn(self.cfg.n, action)}")
 
     def _poll_commands(self, infinite: bool = False) -> str | None:
         """Drain stdin lines that arrived mid-search (the reference's

@@ -76,12 +76,16 @@ def main() -> None:
         sync()
         wall = time.perf_counter() - t0
     rows = prof.key_averages()
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # A span (``utils/profile.py``) also shows as a device range over the
+    # kernels it launched: count kernels and copies only.
+    on_device = [e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.time_range.elapsed_us() for e in on_device)
     syncs = sum(r.count for r in rows if r.key in ("aten::item", "aten::is_nonzero"))
     conv_us = sum(_device_total_us(r) for r in rows if r.key == "aten::convolution")
     host_rows = [r for r in rows if r.device_type == DeviceType.CPU]
-    device_rows = [r for r in rows if r.device_type == DeviceType.CUDA]
+    device_rows = [r for r in rows
+                   if r.device_type == DeviceType.CUDA and not getattr(r, "is_user_annotation", False)]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(rows.table(sort_by="self_cpu_time_total", row_limit=60))

@@ -16,7 +16,9 @@ The two data-dependent ``while_loop``s of the JAX program become Python
 loops with one host check per level, which keeps JAX's semantics exactly:
 the descent runs while ``depth < max_depth and active.any()`` (one
 ``.any()`` sync per level) and the backup runs from ``jmax - 1`` down to
-the root (one ``.item()`` sync per simulation).
+the root (one ``.item()`` sync per simulation).  Each read is a ``sync``
+span, and each phase of a simulation a ``search.*`` span
+(``utils/profile.py``).
 
 Trees are updated in place.
 """
@@ -31,6 +33,7 @@ import torch
 from ..ops.topk import exact_top_k_unsorted, exact_top_k_unsorted_grouped, lax_top_k, topk_plain
 from ..tak.engine import TakEngine
 from ..tak.state import where_state
+from ..utils.profile import host_item, span
 from . import eval as ev
 from .tree import Tree
 
@@ -137,7 +140,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         leaf_slot = torch.zeros_like(cur)
 
         d = 0
-        while d < max_depth and bool(active.any()):  # one host sync per level
+        while d < max_depth and host_item(active.any()):  # one host sync per level
             row_action = tree.child_action[bar, cur]
             row_flag = tree.child_flag[bar, cur]
             row_ply = tree.child_ply[bar, cur]
@@ -335,7 +338,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         pvar = torch.where(stop_known, 0.0, ev.DISCOUNT**2 * var_net)
 
         min_j = 1 if skip_root else 0
-        jmax = int(torch.where(active_bwd, length, 0).max())  # one host sync
+        jmax = host_item(torch.where(active_bwd, length, 0).max())  # one host sync
 
         for j in range(jmax - 1, min_j - 1, -1):
             part = active_bwd & (j < length)
@@ -409,10 +412,14 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
 
     def simulate(tree: Tree, beta, forced_slot=None, *, skip_root: bool = False):
         beta = _betas(tree, beta)
-        rec = forward(tree, beta, forced_slot, skip_root)
-        logits, v_net, var_net = evaluator(rec["env_eval"])
-        apply_eval(tree, rec, logits, v_net, var_net)
-        return backward(tree, rec, v_net, var_net, skip_root)
+        with span("search.forward"):
+            rec = forward(tree, beta, forced_slot, skip_root)
+        with span("search.evaluate"):
+            logits, v_net, var_net = evaluator(rec["env_eval"])
+        with span("search.apply_eval"):
+            apply_eval(tree, rec, logits, v_net, var_net)
+        with span("search.backward"):
+            return backward(tree, rec, v_net, var_net, skip_root)
 
     def simulate_batch(tree: Tree, beta, k: int):
         """K simulations per tree with ONE evaluator call (mcts.rs:268-328).
@@ -425,22 +432,27 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         zero = torch.zeros((b,), dtype=torch.float32, device=tree.child_visit.device)
         recs = []
         for _ in range(k):
-            rec = forward(tree, beta, None, False)
+            with span("search.forward"):
+                rec = forward(tree, beta, None, False)
             # Known stops (terminals, solved subtrees, depth clips) are
             # backed up at once, as the reference does.
-            backward(tree, rec, zero, zero, False, mode="known")
+            with span("search.backward"):
+                backward(tree, rec, zero, zero, False, mode="known")
             recs.append(rec)
 
         # One evaluator call over all K*B leaves, stacked k-major as JAX's
         # scan stacks them.
-        envs = type(recs[0]["env_eval"])(*(torch.cat(parts) for parts in zip(*(r["env_eval"] for r in recs))))
-        logits, v_net, var_net = evaluator(envs)
+        with span("search.evaluate"):
+            envs = type(recs[0]["env_eval"])(*(torch.cat(parts) for parts in zip(*(r["env_eval"] for r in recs))))
+            logits, v_net, var_net = evaluator(envs)
         logits = logits.reshape(k, b, -1)
         v_net = v_net.float().reshape(k, b)
         var_net = var_net.float().reshape(k, b)
         for i, rec in enumerate(recs):
-            apply_eval(tree, rec, logits[i], v_net[i], var_net[i])
-            backward(tree, rec, v_net[i], var_net[i], False, mode="leaf")
+            with span("search.apply_eval"):
+                apply_eval(tree, rec, logits[i], v_net[i], var_net[i])
+            with span("search.backward"):
+                backward(tree, rec, v_net[i], var_net[i], False, mode="leaf")
         return tree
 
     # The phases of one simulation, for the tools that time them

@@ -36,9 +36,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.profiler import record_function
 
 from ..tak.engine import TakEngine
+from ..utils.profile import host_item, span
 from . import eval as ev
 from .core import NEG, _betas, make_topk
 from .tree import Tree
@@ -98,8 +98,8 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
         clip_count = torch.zeros((b,), **i32)
         barK = bar.expand(b, K)
 
-        # Each phase is a profiler range (its host time under torch.profiler).
-        with record_function("serve_chunk.A"):
+        # Each phase is a span (its host time under torch.profiler).
+        with span("serve_chunk.A"):
             for i in range(K + max_depth):
                 d = i - kio  # [1, K] depth of each path this iteration
                 active = alive & (d >= 0)
@@ -188,7 +188,7 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
         # --------------------------------------------------------------
         # Phase B: ONE evaluator call over all B*K leaves.
         # --------------------------------------------------------------
-        with record_function("serve_chunk.B"):
+        with span("serve_chunk.B"):
             logits, v_net, var_net = evaluator(env_eval)
             v_net = v_net.float().reshape(b, K)
             var_net = var_net.float().reshape(b, K)
@@ -196,7 +196,7 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
         # --------------------------------------------------------------
         # Phase C: leaf statistics and the deduplicated expansion.
         # --------------------------------------------------------------
-        with record_function("serve_chunk.C"):
+        with span("serve_chunk.C"):
             # Paths that stopped at the same (parent, slot) form one group;
             # unique dummy keys keep the other paths ungrouped.
             gkey = torch.where(lane_eval, leaf_parent * c + leaf_slot, -1 - kio.to(torch.int64))
@@ -265,13 +265,13 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
         # --------------------------------------------------------------
         # Phase D: level-synchronised backward.
         # --------------------------------------------------------------
-        with record_function("serve_chunk.D"):
+        with span("serve_chunk.D"):
             active_bwd = stop_known | lane_eval
             pf = torch.where(stop_known, known_f, ev.VALUE)
             pp = torch.where(stop_known, known_p, 0)
             pv_ = torch.where(stop_known, known_v, ev.DISCOUNT * v_net)
             pvar = torch.where(stop_known, 0.0, ev.DISCOUNT**2 * var_net)
-            jmax = int(torch.where(active_bwd, length, 0).max())  # the one host read
+            jmax = host_item(torch.where(active_bwd, length, 0).max())  # the one host read
 
             for j in range(jmax - 1, -1, -1):
                 part = active_bwd & (j < length)

@@ -42,6 +42,7 @@ from .tak.engine import TakEngine
 from .tak.moves import action_to_ptn
 from .tak.state import TakState, where_state
 from .tak.tps import state_to_tps
+from .utils.profile import span
 
 
 @dataclass(frozen=True)
@@ -174,19 +175,30 @@ class SelfplayEngine:
         Returns ``(targets, replays, exploration_replays)`` completed by
         this move (exploration replays only where the lane's beta > 0).
         The packed buffer is the one blocking device-to-host copy; the
-        pre-move host state is the previous move's copy.
+        pre-move host state is the previous move's copy.  The device half,
+        the copy and the host half are the spans ``selfplay.move``,
+        ``sync`` and ``selfplay.host_half``.
         """
-        cfg, eng = self.cfg, self.eng
         envs_before = self._envs_host
         draws = {k: self._rows(v.to(self.device)) for k, v in draws.items()}
-        nxt, tree_out, packed, root = self.move(self.envs, self.tree, agent, draws)
+        with span("selfplay.move"):
+            nxt, tree_out, packed, root = self.move(self.envs, self.tree, agent, draws)
         self.envs, self.tree = nxt, tree_out
         self.last_root = root  # on the device; read by --dump-search only
         if self.world is not None:
             packed = self.world.gather(packed)
-        pk = packed.cpu().numpy()
+        with span("sync"):
+            pk = packed.cpu().numpy()
         t0 = time.perf_counter()
+        with span("selfplay.host_half"):
+            out = self._host_half(pk, envs_before)
+        self.host_seconds += time.perf_counter() - t0
+        return out
 
+    def _host_half(self, pk: np.ndarray, envs_before: TakState):
+        """Unpack the move's buffer ``pk``, queue each game's pending
+        target and complete the games that ended: ``play_move``'s return."""
+        cfg, eng = self.cfg, self.eng
         s, c = eng.n * eng.n, cfg.max_children
         cuts = np.cumsum([1, 1, 1, 1, 1, c, c, s, s, s, s, 4, 1, 1, 1, 2])
         if pk.shape[1] != cuts[-1] + 1:
@@ -238,7 +250,6 @@ class SelfplayEngine:
                 if er is not None:
                     exploration_replays.append(er)
                 self.logs[i] = GameLog(start_tps=self._tps(nxt_host, i))
-        self.host_seconds += time.perf_counter() - t0
         return targets, replays, exploration_replays
 
     def _complete_game(self, log: GameLog, terminal_kind: int, beta: float, res: int, road: bool):

@@ -1,18 +1,57 @@
-"""Step-windowed tracing with ``torch.profiler``.
+"""Step-windowed tracing with ``torch.profiler``, and the program's spans.
 
 Counterpart of ``takzero_tpu/utils/profile.py``.  :class:`StepTrace` wraps
 a driver's loop: it skips the first iteration(s), so that building kernels
 and warming caches do not fill the trace, records a fixed window, and
 writes a Chrome trace (``chrome://tracing``, Perfetto) into a directory.
+
+:func:`span` names a phase of the program on the profiler's timeline,
+beside the device's events, while a profiler records (``StepTrace``, the
+benchmark's traced slices).  The spans, each inside the one that caused it:
+
+* ``selfplay.move`` (``SelfplayEngine.play_move``'s device half, the whole
+  search), then ``sync`` (the packed readback), then ``selfplay.host_half``;
+* ``search.forward``, ``search.evaluate``, ``search.apply_eval``,
+  ``search.backward``: the phases of a simulation (``search/core.py``);
+* ``tei.position`` and ``tei.go``: TEI's two commands (``drivers/tei.py``),
+  and ``serve_chunk.A``-``D``: the wavefront's phases (``search/serve.py``);
+* ``sync``: one blocking device-to-host read and nothing else, so that
+  their count is the host's syncs and their time its wait on the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pathlib
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` range called ``name`` while a profiler records;
+    otherwise one shared no-op context: about half a microsecond a span on
+    the host of an H100 machine, where a bare ``record_function`` costs ten
+    (and one small operator eight).
+
+    A range may outlive the profiler it began under, but not into another:
+    stopping one profiler and starting the next while a range is open
+    corrupts the profiler's state (torch 2.13 on the CPU crashes soon
+    after), so a caller that profiles slices does not let two slices meet
+    inside a span."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
+
+
+def host_item(x: torch.Tensor):
+    """``x.item()``, the blocking read of a one-element device tensor,
+    inside a ``sync`` span."""
+    with span("sync"):
+        return x.item()
 
 
 class StepTrace:
