@@ -652,6 +652,7 @@ def run_search_8x8(dev, gen) -> dict:
 
     from takzero_torch.models.agent import make_net_evaluate, new_agent
     from takzero_torch.models.network import NetConfig
+    from takzero_torch.search.core import with_agent
     from takzero_torch.search.gumbel import make_gumbel_search
     from takzero_torch.search.openings import make_new_opening
     from takzero_torch.search.policy import slot_action
@@ -669,7 +670,7 @@ def run_search_8x8(dev, gen) -> dict:
         agent = new_agent(small, seed=0, device=where)
         evaluate = make_net_evaluate(small, eng, device=where)
         envs = make_new_opening(eng)(sym.to(where), pair.to(where))
-        search = make_gumbel_search(eng, lambda e: evaluate(agent, e), 4, 16, max_depth=16)
+        search = make_gumbel_search(eng, with_agent(evaluate, agent), 4, 16, max_depth=16)
         trees[str(where)] = search(init_tree(eng, envs, 24, 64), gumbel.to(where), torch.zeros(2, device=where))
     (t_card, s_card), (t_cpu, s_cpu) = trees[str(dev)], trees["cpu"]
     expect_trees_close(t_card, t_cpu, "8x8 search, small net", 1e-4)
@@ -681,7 +682,7 @@ def run_search_8x8(dev, gen) -> dict:
     agent = new_agent(cfg, seed=0, device=dev)
     evaluate = make_net_evaluate(cfg, eng, device=dev)
     envs = random_positions(eng, batch, 16, gen, dev)
-    search = make_gumbel_search(eng, lambda e: evaluate(agent, e), k, budget, max_depth=48)
+    search = make_gumbel_search(eng, with_agent(evaluate, agent), k, budget, max_depth=48)
     tree = init_tree(eng, envs, budget + 8, children)
     torch.cuda.synchronize()
     _zero_launch_counts()

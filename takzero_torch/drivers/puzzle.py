@@ -32,6 +32,7 @@ from ..config import NET_PRESETS
 from ..models.agent import make_net_evaluate, new_agent
 from ..parallel import mesh as pm
 from ..search import eval as ev
+from ..search.core import with_agent
 from ..search.gumbel import make_gumbel_search
 from ..search.policy import select_best_slot, slot_action
 from ..search.tree import init_tree, truncation_stats
@@ -158,7 +159,7 @@ def make_search_step(eng, net_cfg, evaluate, sampled_actions: int, search_budget
     size = 1 if world is None else world.size
 
     def search_step(envs, bundle, gen):
-        search = make_gumbel_search(eng, lambda e: evaluate(bundle, e), sampled_actions, search_budget, max_depth=48)
+        search = make_gumbel_search(eng, with_agent(evaluate, bundle), sampled_actions, search_budget, max_depth=48)
         b = envs.ply.shape[0]
         tree = init_tree(eng, envs, search_budget + 8, children)
         gumbel = gumbel_noise(gen, (b * size, children))

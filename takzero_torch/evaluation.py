@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .search.core import with_agent
 from .search.gumbel import make_gumbel_search
 from .search.policy import slot_action
 from .search.tree import descend_batch, init_tree, reset_lanes
@@ -78,7 +79,7 @@ def make_compete(
         """One half-move of every game: ``(next envs, terminal kind, my
         tree, opponent's tree)``.  Trees are updated in place or replaced."""
         search = make_gumbel_search(
-            eng, lambda e: evaluator_factory(bundle, e), sampled_actions, search_budget, max_depth
+            eng, with_agent(evaluator_factory, bundle), sampled_actions, search_budget, max_depth
         )
         b = envs.ply.shape[0]
         if not my_reuse:

@@ -137,6 +137,15 @@ def _lcg_closed_form(k: int):
     return weights, (_LCG_C * sum(pows)) & _U32
 
 
+@functools.lru_cache(maxsize=None)
+def _lcg_weights(k: int, device: torch.device):
+    """:func:`_lcg_closed_form` with the weights on ``device``, copied there
+    once (a copy from the host in each call could not be captured in a
+    CUDA graph)."""
+    weights, const = _lcg_closed_form(k)
+    return torch.from_numpy(weights).to(device), const
+
+
 def lcg_fold(words: torch.Tensor) -> torch.Tensor:
     """int64[B]: the 32-bit LCG fold ``acc = A*acc + C + x_i`` (from acc = 0)
     over each row of ``words`` (int64[B, K], values of uint32 words).
@@ -146,8 +155,7 @@ def lcg_fold(words: torch.Tensor) -> torch.Tensor:
     halves, ``x*w = x*w_lo + ((x*w_hi mod 2^16) << 16) (mod 2^32)``, so a
     term is below 2^49 and a sum of K <= 4,096 terms fits.
     """
-    weights, const = _lcg_closed_form(words.shape[1])
-    w = torch.from_numpy(weights).to(words.device)
+    w, const = _lcg_weights(words.shape[1], words.device)
     terms = words * (w & 0xFFFF) + (((words * (w >> 16)) & 0xFFFF) << 16)
     return (terms.sum(-1) + const) & _U32
 
@@ -292,6 +300,10 @@ def make_net_evaluate(cfg: NetConfig, eng: TakEngine, device=None, world=None):
         variance = torch.maximum(torch.exp(ube), local).clamp(0.0, MAXIMUM_VARIANCE)
         return policy, value, variance
 
+    # Its device work reads only the bundle's tensors and ``envs``, with no
+    # host read or copy, so a search may capture it in a CUDA graph
+    # (``search/core.py`` ``with_agent``); a sharded one's collectives not.
+    net_evaluate.capturable = world is None
     return net_evaluate
 
 

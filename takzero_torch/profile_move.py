@@ -16,8 +16,10 @@ events (kernels and copies), the device's idle share (1 - device time /
 wall time), the number of device events and of host syncs (``aten::item``
 and ``aten::is_nonzero`` calls), the device time of the network's
 convolutions (every kernel under ``aten::convolution``, layout transposes
-included), and the operators that take the most host time and the kernels
-that take the most device time.  The full operator
+included), the move's simulation middles by how they ran (eager, captured
+into CUDA graphs or replayed: ``search/core.py`` ``MIDDLES``), and the
+operators that take the most host time and the kernels that take the most
+device time.  The full operator
 table goes to ``--out``.
 """
 
@@ -34,6 +36,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .bench import BenchConfig, setup
+from .search import core
 
 
 def _top(rows, key, n: int = 12) -> list:
@@ -70,6 +73,7 @@ def main() -> None:
     st.move()  # warm-up
     sync()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    middles = dict(core.MIDDLES)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         st.move()
@@ -99,6 +103,7 @@ def main() -> None:
         "device_events": len(on_device),
         "host_syncs": syncs,
         "conv_device_ms": conv_us / 1e3,
+        "middles": {k: core.MIDDLES[k] - middles[k] for k in middles},
         "top_by_host": _top(host_rows, lambda r: r.self_cpu_time_total),
         "top_by_device": _top(device_rows, _device_us),
         "table": str(out),

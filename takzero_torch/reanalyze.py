@@ -18,6 +18,7 @@ import torch
 
 from .data.target import Target, pad_policy_with_legal
 from .search import eval as ev
+from .search.core import with_agent
 from .search.gumbel import make_gumbel_search
 from .search.policy import improved_policy, most_visited_count, slot_action, ube_target
 from .search.tree import init_tree
@@ -39,8 +40,8 @@ def make_reanalyze_step(
     max_nodes = search_budget + 8
 
     def step(envs, agent, gumbel: torch.Tensor):
-        evaluator = lambda e: evaluator_factory(agent, e)  # noqa: E731
-        search = make_gumbel_search(eng, evaluator, sampled_actions, search_budget, max_depth)
+        search = make_gumbel_search(eng, with_agent(evaluator_factory, agent), sampled_actions, search_budget,
+                                    max_depth)
         b, dev = envs.ply.shape[0], envs.ply.device
         tree = init_tree(eng, envs, max_nodes, max_children)
         tree, slot = search(tree, gumbel.to(dev), torch.zeros(b, device=dev))

@@ -16,20 +16,30 @@ The two data-dependent ``while_loop``s of the JAX program become Python
 loops with one host check per level, which keeps JAX's semantics exactly:
 the descent runs while ``depth < max_depth and active.any()`` (one
 ``.any()`` sync per level) and the backup runs from ``jmax - 1`` down to
-the root (one ``.item()`` sync per simulation).  Each read is a ``sync``
-span, and each phase of a simulation a ``search.*`` span
-(``utils/profile.py``).
+the root (one ``.item()`` sync per simulation, read right after the
+descent's loop).  Each read is a ``sync`` span, and each phase of a
+simulation a ``search.*`` span (``utils/profile.py``).
+
+Between the loop and the backup a simulation has fixed shapes and no host
+read: the forward tail (``settle``), the evaluator and ``apply_eval``.
+Within one search (``simulate.search_scope``, which the Gumbel search
+opens) on a CUDA device, that middle is captured into CUDA graphs in the
+second simulation and replayed in every later one (``_SearchGraphs``).
 
 Trees are updated in place.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 from typing import Callable
 
 import torch
 
+from ..ops import simhash as _simhash
+from ..ops import topk as _topk
 from ..ops.topk import exact_top_k_unsorted, exact_top_k_unsorted_grouped, lax_top_k, topk_plain
 from ..tak.engine import TakEngine
 from ..tak.state import where_state
@@ -99,8 +109,11 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
     """Build ``(simulate, simulate_batch)``.
 
     ``simulate(tree, beta, forced_slot=None, *, skip_root=False)`` and
-    ``simulate_batch(tree, beta, k)``.  ``evaluator(envs) ->
-    (policy_logits [B, A], value [B], variance [B])``.  Expansion selects
+    ``simulate_batch(tree, beta, k)``; ``with simulate.search_scope(tree) as
+    sim`` gives the ``simulate`` of one search's simulations.
+    ``evaluator(envs) -> (policy_logits [B, A], value [B], variance [B])``;
+    one with a ``capturable`` attribute that is True is captured in a
+    search's CUDA graphs (:func:`with_agent`).  Expansion selects
     children with ``make_topk(topk)`` (by default kernel A), once per
     ``apply_eval``; the choice is fixed here, as in JAX.
 
@@ -111,8 +124,14 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
     (``tests/test_torch_reference_checks.py`` runs a SafeCrack engine).
     """
     topk_fn = make_topk(topk)
+    capture_evaluator = getattr(evaluator, "capturable", False) is True
 
-    def forward(tree: Tree, beta, forced_slot, skip_root: bool):
+    def descend(tree: Tree, beta, forced_slot, skip_root: bool, out: dict | None = None) -> dict:
+        """The descent's level loop: selection from the root down to the
+        first unexpanded child of each lane, or to ``max_depth``.  Its
+        outputs (:func:`_descent_buffers`' fields) are written in place into
+        ``out``, a search's buffers at fixed addresses, or into fresh
+        tensors."""
         b, m, c = tree.child_visit.shape
         dev = tree.child_visit.device
         bar = torch.arange(b, device=dev)
@@ -120,24 +139,24 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         if not skip_root:
             tree.root_visit.add_(1)
 
+        o = _descent_buffers(b, max_depth, dev) if out is None else out
         root_unexp = ~tree.root_expanded()
-        lane_root_expand = root_unexp & (tree.root_flag == 0)
+        torch.bitwise_and(root_unexp, tree.root_flag == 0, out=o["lane_root_expand"])
 
-        i32 = dict(dtype=torch.int32, device=dev)
-        cur = torch.zeros((b,), dtype=torch.int64, device=dev)
-        cur_flag = tree.root_flag.clone()
+        cur = o["cur"].zero_()
+        cur_flag = o["cur_flag"].copy_(tree.root_flag)
         cur_visit = tree.root_visit.clone()
-        active = ~root_unexp
-        path_node = torch.full((b, max_depth), -1, **i32)
-        path_slot = torch.full((b, max_depth), -1, **i32)
-        length = torch.zeros((b,), **i32)
-        stop_known = torch.zeros((b,), dtype=torch.bool, device=dev)
-        known_f = torch.zeros((b,), **i32)
-        known_p = torch.zeros((b,), **i32)
-        known_v = torch.zeros((b,), dtype=torch.float32, device=dev)
-        stop_leaf = torch.zeros_like(stop_known)
-        leaf_parent = torch.zeros_like(cur)
-        leaf_slot = torch.zeros_like(cur)
+        active = torch.bitwise_not(root_unexp, out=o["active"])
+        path_node = o["path_node"].fill_(-1)
+        path_slot = o["path_slot"].fill_(-1)
+        length = o["length"].zero_()
+        stop_known = o["stop_known"].zero_()
+        known_f = o["known_f"].zero_()
+        known_p = o["known_p"].zero_()
+        known_v = o["known_v"].zero_()
+        stop_leaf = o["stop_leaf"].zero_()
+        leaf_parent = o["leaf_parent"].zero_()
+        leaf_slot = o["leaf_slot"].zero_()
 
         d = 0
         while d < max_depth and host_item(active.any()):  # one host sync per level
@@ -177,32 +196,56 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
             unexp = cn < 0
             new_known = active & unexp & (cf != ev.VALUE)
             new_leaf = active & unexp & (cf == ev.VALUE)
-            cont = active & ~unexp
+            active &= ~unexp  # the lanes that continue
 
-            length = torch.where(new_known | new_leaf, d + 1, length)
-            stop_known = stop_known | new_known
-            known_f = torch.where(new_known, cf, known_f)
-            known_p = torch.where(new_known, cp, known_p)
-            known_v = torch.where(new_known, cv, known_v)
-            stop_leaf = stop_leaf | new_leaf
-            leaf_parent = torch.where(new_leaf, cur, leaf_parent)
-            leaf_slot = torch.where(new_leaf, slot, leaf_slot)
-            cur = torch.where(cont, cn.to(torch.int64), cur)
-            cur_flag = torch.where(cont, cf, cur_flag)
-            cur_visit = torch.where(cont, cvisit, cur_visit)
-            active = cont
+            length.masked_fill_(new_known | new_leaf, d + 1)
+            stop_known |= new_known
+            torch.where(new_known, cf, known_f, out=known_f)
+            torch.where(new_known, cp, known_p, out=known_p)
+            torch.where(new_known, cv, known_v, out=known_v)
+            stop_leaf |= new_leaf
+            torch.where(new_leaf, cur, leaf_parent, out=leaf_parent)
+            torch.where(new_leaf, slot, leaf_slot, out=leaf_slot)
+            torch.where(active, cn.to(torch.int64), cur, out=cur)
+            torch.where(active, cf, cur_flag, out=cur_flag)
+            cur_visit = torch.where(active, cvisit, cur_visit)
             d += 1
+        return o
+
+    def backup_depth(loop: dict) -> int:
+        """The deepest level that ``backward`` in mode "all" backs up, read
+        on the host right after the level loop (one host sync).  Its lanes
+        are those of a known stop, a depth clip or a leaf: ``settle`` only
+        moves terminal leaves to the known stops and sets the clipped
+        lanes' length to ``max_depth``, so this is the value ``backward``
+        would read after the middle, and the host dispatches the backup
+        while the middle runs on the device."""
+        reach = loop["stop_known"] | loop["active"] | loop["stop_leaf"]
+        length = torch.where(loop["active"], max_depth, loop["length"])
+        return host_item(torch.where(reach, length, 0).max())
+
+    def settle(tree: Tree, loop: dict) -> dict:
+        """From the end of the level loop to the evaluation: the depth
+        clip, the path's visits, the leaf environments and terminal
+        discovery.  Fixed shapes and no host read: a search replays it
+        from a CUDA graph (``search_scope``)."""
+        b, m, c = tree.child_visit.shape
+        bar = torch.arange(b, device=tree.child_visit.device)
+        cur, cur_flag = loop["cur"], loop["cur_flag"]
+        path_node, path_slot = loop["path_node"], loop["path_slot"]
+        leaf_parent, leaf_slot = loop["leaf_parent"], loop["leaf_slot"]
+        stop_leaf, lane_root_expand = loop["stop_leaf"], loop["lane_root_expand"]
 
         # Depth-clipped lanes back up the current node's own eval: flag,
         # value and ply from its parent edge.
-        clipped = active
-        stop_known = stop_known | clipped
-        known_f = torch.where(clipped, cur_flag, known_f)
+        clipped = loop["active"]
+        stop_known = loop["stop_known"] | clipped
+        known_f = torch.where(clipped, cur_flag, loop["known_f"])
         clip_parent = tree.node_parent[bar, cur].clamp(min=0).to(torch.int64)
         clip_slot = tree.node_slot[bar, cur].clamp(min=0).to(torch.int64)
-        known_p = torch.where(clipped, tree.child_ply[bar, clip_parent, clip_slot], known_p)
-        known_v = torch.where(clipped, tree.child_value[bar, clip_parent, clip_slot], known_v)
-        length = torch.where(clipped, max_depth, length)
+        known_p = torch.where(clipped, tree.child_ply[bar, clip_parent, clip_slot], loop["known_p"])
+        known_v = torch.where(clipped, tree.child_value[bar, clip_parent, clip_slot], loop["known_v"])
+        length = torch.where(clipped, max_depth, loop["length"])
         tree.overflow.add_(clipped.to(torch.int32))
 
         add_path_visits(tree.child_visit, path_node, path_slot)
@@ -219,10 +262,12 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         root_term = lane_root_expand & (tk != 0)
         # Terminal leaves become known (tk, ply 0, std 0); other lanes write
         # to the scratch row so the stores are unconditional.
+        # (Stored values are device tensors: a Python number would be
+        # copied from the host, which a CUDA graph cannot capture.)
         t_node = torch.where(leaf_term, leaf_parent, m - 1)
         tree.child_flag[bar, t_node, leaf_slot] = tk
-        tree.child_ply[bar, t_node, leaf_slot] = 0
-        tree.child_std[bar, t_node, leaf_slot] = 0.0
+        tree.child_ply[bar, t_node, leaf_slot] = torch.zeros_like(tk)
+        tree.child_std[bar, t_node, leaf_slot] = torch.zeros_like(loop["known_v"])
         tree.root_flag.copy_(torch.where(root_term, tk, tree.root_flag))
         tree.root_ply.copy_(torch.where(root_term, 0, tree.root_ply))
         tree.root_std.copy_(torch.where(root_term, 0.0, tree.root_std))
@@ -246,6 +291,11 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
             leaf_slot=leaf_slot,
             env_eval=env_eval,
         )
+
+    def forward(tree: Tree, beta, forced_slot, skip_root: bool):
+        """The descent and its settling, in fresh tensors: a simulation's
+        ``rec``."""
+        return settle(tree, descend(tree, beta, forced_slot, skip_root))
 
     def apply_eval(tree: Tree, rec, logits, v_net, var_net):
         b, m, c = tree.child_visit.shape
@@ -296,12 +346,13 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         tree.child_action[bar, new_node] = torch.where(valid_child, top_idx, -1).to(torch.int32)
         tree.child_logit[bar, new_node] = torch.where(valid_child, top_vals, 0.0)
         tree.child_prob[bar, new_node] = probs
-        tree.child_visit[bar, new_node] = 0
-        tree.child_flag[bar, new_node] = 0
-        tree.child_ply[bar, new_node] = 0
+        zero = tree.child_visit.new_zeros(())  # a device value (see ``settle``)
+        tree.child_visit[bar, new_node] = zero
+        tree.child_flag[bar, new_node] = zero
+        tree.child_ply[bar, new_node] = zero
         tree.child_value[bar, new_node] = -v_after[:, None].expand(b, c)
         tree.child_std[bar, new_node] = s_after[:, None].expand(b, c)
-        tree.child_node[bar, new_node] = -1
+        tree.child_node[bar, new_node] = zero - 1
 
         leaf_expand = expanding & lane_eval_leaf
         tree.node_parent[bar, new_node] = torch.where(leaf_expand, leaf_parent, -1).to(torch.int32)
@@ -317,8 +368,10 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         tree.overflow.add_((evaluated & ~can_expand).to(torch.int32))
         return tree
 
-    def backward(tree: Tree, rec, v_net, var_net, skip_root: bool, mode: str = "all"):
-        """``mode``: "all" (known stops and evaluated leaves), "known" or "leaf"."""
+    def backward(tree: Tree, rec, v_net, var_net, skip_root: bool, mode: str = "all", jmax: int | None = None):
+        """``mode``: "all" (known stops and evaluated leaves), "known" or
+        "leaf".  ``jmax``, the deepest level to back up, is read here (one
+        host sync) unless the caller read it already (``backup_depth``)."""
         b, m, c = tree.child_visit.shape
         bar = torch.arange(b, device=tree.child_visit.device)
         path_node, path_slot = rec["path_node"], rec["path_slot"]
@@ -338,7 +391,8 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         pvar = torch.where(stop_known, 0.0, ev.DISCOUNT**2 * var_net)
 
         min_j = 1 if skip_root else 0
-        jmax = host_item(torch.where(active_bwd, length, 0).max())  # one host sync
+        if jmax is None:
+            jmax = host_item(torch.where(active_bwd, length, 0).max())  # one host sync
 
         for j in range(jmax - 1, min_j - 1, -1):
             part = active_bwd & (j < length)
@@ -410,16 +464,43 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
             pvar = torch.where(part, out_var, pvar)
         return tree
 
-    def simulate(tree: Tree, beta, forced_slot=None, *, skip_root: bool = False):
+    def simulate(tree: Tree, beta, forced_slot=None, *, skip_root: bool = False, graphs=None):
         beta = _betas(tree, beta)
+        if graphs is None:
+            run = _eager
+        else:
+            graphs.check(tree)
+            run = graphs.run
         with span("search.forward"):
-            rec = forward(tree, beta, forced_slot, skip_root)
+            loop = descend(tree, beta, forced_slot, skip_root, None if graphs is None else graphs.loop)
+            jmax = backup_depth(loop)
+            rec = run("forward", lambda: settle(tree, loop))
         with span("search.evaluate"):
-            logits, v_net, var_net = evaluator(rec["env_eval"])
+            logits, v_net, var_net = run("evaluate", lambda: evaluator(rec["env_eval"]))
         with span("search.apply_eval"):
-            apply_eval(tree, rec, logits, v_net, var_net)
+            run("apply_eval", lambda: apply_eval(tree, rec, logits, v_net, var_net))
+        MIDDLES["eager" if graphs is None else graphs.end_simulation()] += 1
         with span("search.backward"):
-            return backward(tree, rec, v_net, var_net, skip_root)
+            return backward(tree, rec, v_net, var_net, skip_root, jmax=jmax)
+
+    @contextlib.contextmanager
+    def search_scope(tree: Tree):
+        """``simulate`` for the simulations of one search of ``tree``.
+
+        On a CUDA device their middles (``settle``, the evaluator and
+        ``apply_eval``) run from CUDA graphs (:class:`_SearchGraphs`), which
+        read ``tree``'s storage and this evaluator's state as they are
+        during the search and are released when the scope closes.
+        Elsewhere it is ``simulate`` itself."""
+        dev = tree.child_visit.device
+        if dev.type != "cuda":
+            yield simulate
+            return
+        graphs = _SearchGraphs(tree, max_depth, capture_evaluator)
+        try:
+            yield functools.partial(simulate, graphs=graphs)
+        finally:
+            graphs.close()
 
     def simulate_batch(tree: Tree, beta, k: int):
         """K simulations per tree with ONE evaluator call (mcts.rs:268-328).
@@ -457,8 +538,170 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
 
     # The phases of one simulation, for the tools that time them
     # (``tools/phase_cliff.py``), as JAX's ``simulate.phases``.
-    simulate.phases = dict(forward=forward, apply_eval=apply_eval, backward=backward)
+    simulate.phases = dict(forward=forward, apply_eval=apply_eval, backward=backward, descend=descend,
+                           backup_depth=backup_depth, settle=settle)
+    simulate.search_scope = search_scope
     return simulate, simulate_batch
+
+
+# Middles of simulations run in this process, by how they ran: eagerly,
+# captured into a search's CUDA graphs (and replayed once), or replayed.
+MIDDLES = {"eager": 0, "captured": 0, "replayed": 0}
+
+
+def with_agent(evaluate: Callable, agent) -> Callable:
+    """``envs -> evaluate(agent, envs)``: a search's evaluator bound to an
+    agent, capturable in CUDA graphs where ``evaluate`` declares itself so
+    (a ``capturable`` attribute that is True:
+    :func:`takzero_torch.models.agent.make_net_evaluate`'s evaluator of one
+    process).  An evaluator that declares nothing runs eagerly in every
+    simulation, between a search's graphs."""
+
+    def evaluator(envs):
+        return evaluate(agent, envs)
+
+    evaluator.capturable = getattr(evaluate, "capturable", False) is True
+    return evaluator
+
+
+def _descent_buffers(b: int, max_depth: int, device) -> dict:
+    """Uninitialised outputs of the descent's level loop over ``b`` lanes:
+    the lanes that expand their root, the current node, flag and activity
+    (``active`` after the loop: the depth-clipped lanes), the path, its
+    length, the known stops and their evals, the leaves and their edges."""
+    i32 = dict(dtype=torch.int32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    flag = dict(dtype=torch.bool, device=device)
+    return dict(
+        lane_root_expand=torch.empty((b,), **flag),
+        cur=torch.empty((b,), **i64),
+        cur_flag=torch.empty((b,), **i32),
+        active=torch.empty((b,), **flag),
+        path_node=torch.empty((b, max_depth), **i32),
+        path_slot=torch.empty((b, max_depth), **i32),
+        length=torch.empty((b,), **i32),
+        stop_known=torch.empty((b,), **flag),
+        known_f=torch.empty((b,), **i32),
+        known_p=torch.empty((b,), **i32),
+        known_v=torch.empty((b,), dtype=torch.float32, device=device),
+        stop_leaf=torch.empty((b,), **flag),
+        leaf_parent=torch.empty((b,), **i64),
+        leaf_slot=torch.empty((b,), **i64),
+    )
+
+
+def _eager(phase: str, fn: Callable):
+    del phase
+    return fn()
+
+
+def _launch_counts() -> tuple:
+    """Kernel A's and B's host counters, on the wrappers their modules
+    hold now (a test may hold a counting one in a wrapper's place)."""
+    return _topk.exact_top_k_unsorted.launches, _simhash.simhash_pack.launches
+
+
+def _add_launches(added: tuple) -> None:
+    _topk.exact_top_k_unsorted.launches += added[0]
+    _simhash.simhash_pack.launches += added[1]
+
+
+def _captured(fn: Callable, pool, stream: torch.cuda.Stream):
+    """(graph, outputs): ``fn``'s device work captured on ``stream`` into
+    ``pool``, not run."""
+    graph = torch.cuda.CUDAGraph()
+    main = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        except BaseException:
+            with contextlib.suppress(RuntimeError):
+                graph.capture_end()
+            raise
+        graph.capture_end()
+    main.wait_stream(stream)
+    return graph, out
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_resources(index: int):
+    """(memory pool, side stream, keeper) of the search graphs on CUDA
+    device ``index``, one set for the process, so that each search captures
+    into the memory its predecessor's graphs left free.  The keeper, the
+    pool's first graph (one fill, never replayed), holds the pool open
+    between searches: a pool whose graphs are all released takes no further
+    capture."""
+    with torch.cuda.device(index):
+        pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+        keeper, _ = _captured(lambda: torch.zeros((1,), device=f"cuda:{index}"), pool, stream)
+    return pool, stream, keeper
+
+
+class _SearchGraphs:
+    """The middles of one search's simulations on a CUDA device.
+
+    The first simulation runs its middle eagerly, which warms cuDNN's
+    algorithm choice, kernels A's and B's one-time attributes and the
+    engine's device tables.  The second captures each phase of its middle
+    into a CUDA graph in one shared pool, on a side stream, and replays it;
+    every later simulation replays them: the forward tail (``settle``),
+    the evaluator where it is ``capturable``, and ``apply_eval``.  An
+    evaluator that is not runs eagerly, and its outputs are copied to
+    fixed addresses for ``apply_eval``'s graph.  The level loop writes its
+    outputs into ``loop``, the forward tail's inputs; each graph's outputs
+    are static tensors that the backup reads, and stream order keeps the
+    next replay behind the backup's reads.  A replay adds to kernels A's
+    and B's counters the launches its capture counted.
+    """
+
+    def __init__(self, tree: Tree, max_depth: int, capture_evaluator: bool):
+        dev = tree.child_visit.device
+        self.tree = tree
+        self.loop = _descent_buffers(tree.batch_size, max_depth, dev)
+        self.capture_evaluator = capture_evaluator
+        self.pool, self.stream, _ = _capture_resources(dev.index)
+        self.sims = 0
+        self.graphs: dict = {}  # phase -> (graph, its outputs, launches it adds)
+        self.static = None  # an eager evaluator's outputs at fixed addresses
+
+    def check(self, tree: Tree) -> None:
+        if tree is not self.tree:
+            raise ValueError("a search scope's simulations must search the tree it was opened on")
+
+    def run(self, phase: str, fn: Callable):
+        if self.sims == 0:
+            return fn()
+        if phase == "evaluate" and not self.capture_evaluator:
+            out = fn()
+            if self.static is None:
+                self.static = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in out)
+            for dst, src in zip(self.static, out):
+                dst.copy_(src)
+            return self.static
+        if phase in self.graphs:
+            graph, out, added = self.graphs[phase]
+            _add_launches(added)
+        else:  # the capture counted this simulation's launches
+            graph, out, _ = self.graphs[phase] = self._capture(fn)
+        graph.replay()
+        return out
+
+    def _capture(self, fn: Callable):
+        before = _launch_counts()
+        graph, out = _captured(fn, self.pool, self.stream)
+        return graph, out, tuple(a - b for a, b in zip(_launch_counts(), before))
+
+    def end_simulation(self) -> str:
+        """The engagement of the simulation that ends (``MIDDLES``' key)."""
+        self.sims += 1
+        return "eager" if self.sims == 1 else "captured" if self.sims == 2 else "replayed"
+
+    def close(self) -> None:
+        graphs, self.graphs, self.static, self.loop, self.tree = self.graphs, {}, None, None, None
+        for graph, _, _ in graphs.values():
+            graph.reset()
 
 
 def _betas(tree: Tree, beta) -> torch.Tensor:

@@ -71,7 +71,13 @@ def make_gumbel_search(
     k = sampled_actions
 
     def search(tree: Tree, gumbel: torch.Tensor, betas: torch.Tensor):
-        """Returns ``(tree, chosen_slot [B])``; ``tree`` is updated in place."""
+        """Returns ``(tree, chosen_slot [B])``; ``tree`` is updated in place.
+        On a CUDA device the middles of its simulations replay from CUDA
+        graphs captured in its second simulation (``search_scope``)."""
+        with simulate.search_scope(tree) as sim:
+            return _search(sim, tree, gumbel, betas)
+
+    def _search(simulate, tree: Tree, gumbel: torch.Tensor, betas: torch.Tensor):
         b, _, c = tree.child_visit.shape
         dev = tree.child_visit.device
         betas = betas.to(device=dev, dtype=torch.float32).expand(b)

@@ -34,6 +34,7 @@ import torch
 from .data.target import Replay, Target, pad_policy_with_legal, result_str_from
 from .device import resolve_device
 from .search import eval as ev
+from .search.core import with_agent
 from .search.gumbel import make_gumbel_search, sh_schedule
 from .search.openings import make_new_opening
 from .search.policy import improved_policy, select_selfplay_slot, slot_action, ube_target
@@ -281,9 +282,9 @@ class SelfplayEngine:
         and the root's incomplete bit.
         """
         cfg, eng = self.cfg, self.eng
-        evaluator = lambda e: self.evaluator_factory(agent, e)  # noqa: E731
         search = make_gumbel_search(
-            eng, evaluator, cfg.sampled_actions, cfg.search_budget, cfg.max_depth, self.topk
+            eng, with_agent(self.evaluator_factory, agent), cfg.sampled_actions, cfg.search_budget,
+            cfg.max_depth, self.topk,
         )
         if not cfg.tree_reuse:
             tree = init_tree(eng, envs, cfg.max_nodes, cfg.max_children)

@@ -220,7 +220,8 @@ class TakEngine:
         tc = self.top_color(state)
         road_piece = (state.tops == 1) | (state.tops == 3)
         cells = torch.stack([road_piece & (tc == 0), road_piece & (tc == 1)], dim=1)
-        cells4 = cells[:, [0, 0, 1, 1]].reshape(b, 4, n, n).to(torch.float32)
+        # Channels (white, white, black, black): a view, no index list to copy to the device.
+        cells4 = cells[:, :, None].expand(b, 2, 2, n * n).reshape(b, 4, n, n).to(torch.float32)
         dev = cells4.device
         col = torch.arange(n, device=dev)
         seed_h = (col[None, :] == 0).expand(n, n)

@@ -269,3 +269,71 @@ def test_topk_kernel_at_one_4x4_tree(cuda, k):
     _expect_topk_equal(masked.contiguous().to(cuda), k)
     for row in (2, 4, 6):
         _expect_topk_equal(_adversarial_rows(944, gen)[16 * row : 16 * row + 1].contiguous().to(cuda), k)
+
+
+@pytest.mark.parametrize("evaluator", ["net", "simple"])
+@pytest.mark.parametrize("n,novelty", [(6, "simhash"), (5, "rnd")])
+def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evaluator):
+    """A Gumbel search on the card replays its simulations' middles from
+    CUDA graphs and gives the eager search's trees and chosen slots bit for
+    bit, at net6's and net5's board sizes with C=256 (32 games, k=16,
+    budget 64; a 32x2 bf16 net with SimHash over a half-set 2^20 seen-set,
+    or the MLP RND; or the simple evaluator, which runs eagerly between the
+    two graphs).  Kernels A's and B's counters read as eagerly; the search
+    engages 1 eager, 1 captured and budget - 1 replayed middles; and its
+    graphs leave no memory allocated when it returns."""
+    from takzero_torch.models.agent import make_net_evaluate, new_agent
+    from takzero_torch.models.network import NetConfig
+    from takzero_torch.search import core
+    from takzero_torch.search.agents import simple_evaluator
+    from takzero_torch.search.gumbel import make_gumbel_search
+    from takzero_torch.search.openings import make_new_opening
+    from takzero_torch.search.tree import init_tree
+    from takzero_torch.selfplay import gumbel_noise
+    from takzero_torch.tak import engine
+
+    b, k, budget, c = 32, 16, 64, 256
+    eng = engine(n, half_komi=4)
+    cfg = NetConfig(n=n, half_komi=4, filters=32, blocks=2, novelty=novelty, hash_bits=20, rnd_mlp=True)
+    gen = torch.Generator().manual_seed(n)
+    envs = make_new_opening(eng)(torch.randint(0, 8, (b,), generator=gen).to(cuda),
+                                 torch.randint(0, 2, (b,), generator=gen).to(cuda))
+    gumbel = gumbel_noise(gen, (b, c)).to(cuda)
+    betas = (torch.rand(b, generator=gen) * 0.5).to(cuda)
+    agent = new_agent(cfg, seed=3, device=cuda)
+    if novelty == "simhash":
+        agent["hash_bits"].copy_(torch.randint(-2**31, 2**31 - 1, agent["hash_bits"].shape, generator=gen,
+                                               dtype=torch.int32).to(cuda))
+    if evaluator == "net":
+        evaluate = core.with_agent(make_net_evaluate(cfg, eng, device=cuda), agent)
+        assert evaluate.capturable
+    else:
+        evaluate = simple_evaluator(eng)
+    search = make_gumbel_search(eng, evaluate, k, budget, max_depth=48)
+
+    def run():
+        launches = core._launch_counts()
+        middles = dict(core.MIDDLES)
+        tree, slot = search(init_tree(eng, envs, budget + 8, c), gumbel, betas)
+        torch.cuda.synchronize()
+        return tree, slot, [a - z for a, z in zip(core._launch_counts(), launches)], \
+            {key: core.MIDDLES[key] - middles[key] for key in middles}
+
+    run()  # the process's first graphed search also opens the capture pool
+    level = torch.cuda.memory_allocated(cuda)
+    tree, slot, launches, middles = run()
+    del tree, slot
+    assert torch.cuda.memory_allocated(cuda) == level
+    graphed = run()
+    with monkeypatch.context() as m:
+        m.setattr(core._SearchGraphs, "run", lambda self, phase, fn: fn())
+        eager = run()
+    assert launches == eager[2] == [budget + 1, budget + 1 if novelty == "simhash" and evaluator == "net" else 0]
+    assert middles == {"eager": 1, "captured": 1, "replayed": budget - 1}
+    assert torch.equal(graphed[1], eager[1])
+    _trees_equal(graphed[0], _on_cpu(eager[0]), "graphed search")
+
+
+def _on_cpu(tree):
+    return tree._replace(**{f: getattr(tree, f).cpu() for f in tree._fields if f != "node_env"},
+                         node_env=tree.node_env.map(lambda x: x.cpu()))
