@@ -23,6 +23,15 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    not multiples of the kernel's tiles.  Every bit whose float64 dot
    satisfies |dot| > 1e-4 must match, and two launches must give
    identical words;
+4b. the search's descent and backup kernels (``ops/tree.py``) at the
+   selfplay cells' shapes, [128 lanes, C=256] at 6x6 and [128, C=128] at
+   5x5, on the tree of a Gumbel search (simple evaluator, k=64, budget 384,
+   fresh openings): the descent with a forced slot under ``skip_root`` (as
+   the search's simulations run it) and without, and the backup of its
+   paths, every output and tree array bit for bit equal to the batched
+   loops'; timed (device time, call time, the loops' call time, the bytes
+   bound: a level reads a node's row of 8 arrays in the descent, of 4 in
+   the backup);
 3b. kernel A on rows too wide for shared memory (after phase 4, so that
    ``--kernels-only`` still times earlier designs): 8x8's f32[128, 65216]
    on masked logits of random 8x8 positions and on the adversarial rows,
@@ -40,9 +49,10 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
 6. the main path: ``takzero_torch.bench`` at the flagship configuration
    (6x6, 16x256 bf16 net, SimHash 2^26, batch 128, k=64, budget 768,
    C=256, tree reuse), one warm-up move and one timed move (cut from the
-   bench's two to keep the smoke inside its time).  Both kernels'
-   launch counters are set to 0 before and must read (budget+1) per move
-   after; chosen actions must be legal and tree values finite;
+   bench's two to keep the smoke inside its time).  The launch counters
+   of kernels A and B and of the descent and backup kernels are set to 0
+   before and must read (budget+1) per move after (a descent and a backup
+   a simulation); chosen actions must be legal and tree values finite;
 7. the learner, small reference: two ``tiny3`` train steps (``train_ube``
    False, then True) on the card against the same steps on the CPU, from
    the same weights and batches, in float32 and in bf16: metrics, BN
@@ -80,7 +90,8 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    ``targets-reanalyze.txt``.  It fails on a target line the port's parser
    rejects, a policy that does not list exactly the legal actions of its
    TPS, a replay that does not replay to its recorded result, a kernel
-   count other than (budget+1) per selfplay move and per reanalyze step,
+   count (A, B, the descent and the backup kernels) other than (budget+1)
+   per selfplay move and per reanalyze step,
    or a non-finite value or loss.  The phase line gives selfplay moves/s,
    targets/s and the host half's share of the move time, reanalyze
    targets/s and the share of replay explosion, the learner's steps/s on
@@ -98,19 +109,22 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    ``tei``, ``isready``, ``position startpos``, ``go nodes 1024``, the
    bestmove played, ``go nodes 1024``, the midgame TPS, ``go movetime
    2000``, ``quit``: every bestmove legal, every ``info`` line parsed, the
-   tree reused (the descended root keeps the child's visits), each kernel
-   launched exactly twice per chunk; (c) ``serve_bench`` with its defaults
+   tree reused (the descended root keeps the child's visits), kernels A
+   and B launched exactly twice per chunk, the descent and backup kernels
+   once (the plain simulate's; the serve chunk has its own loops); (c) ``serve_bench`` with its defaults
    (nodes/s, seconds per chunk, peak device memory) beside TEI's own nps;
    (d) one analysis chunk on a fresh tree: 128 root visits, one table row
-   per valid root child, kernel A 128 launches and B 2; (e) the evaluation
+   per valid root child, kernel A 128 launches and B 2, the descent
+   kernel 128 and the backup kernel 255; (e) the evaluation
    driver with ``--pair`` at net4_simhash on two checkpoints of
    ``new_agent`` seeds 1 and 2 (32 games, k=4, budget 8, 25 moves a side:
    depth cut): both log lines parse as the Elo tooling parses them, W+L+D
-   <= games, both kernels (budget+1) launches per half-move; (f) the puzzle
+   <= games, kernels A and B and the tree kernels (budget+1) launches per
+   half-move; (f) the puzzle
    driver at net6_simhash on the repository's ``examples/puzzles_6x6.db``
    (238 puzzles, every category: tinue at depths 3/5/7/9, avoidance at
    2/4/6; 7 batches of up to 64; k=8, budget 24): every puzzle attempted,
-   (budget+1) launches per batch, solved and proven reported per depth
+   (budget+1) launches of A, B and the tree kernels per batch, solved and proven reported per depth
    (random weights: not gated);
 11. the co-scheduled driver (``takzero_torch.drivers.coscheduled``) at
    net4_simhash full width (16x256 bf16, SimHash over 2^32 bits, C=128)
@@ -290,14 +304,18 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    (``learner_allreduce_ms``), on phase 17 (``jax_checkpoint_launches``,
    ``pool_tools_launches``), and on phase 18b
    (``topk_ab_launches_per_move``) with each impl's µs per call at
-   f32[128, 9036] (``topk_impls_us_per_call``).
+   f32[128, 9036] (``topk_impls_us_per_call``); then the descent and
+   backup kernels (``tree_descend``, ``tree_backup``) with their launches
+   on the move program, the selfplay driver, reanalyze and the serve
+   path, read from the counters in this run, and phase 4b's rows at
+   [128, C=256] (``at_6x6``) and [128, C=128] (``at_5x5``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
 kernel time if capture fails; the phase line says which).  Call time per
 call: 200 back-to-back calls of the wrapper after 20 warm-up calls, between
 two CUDA events, which is what the main path pays with the host in the
-loop.  ``--kernels-only`` stops after phase 4 (a short call, or a checkout
+loop.  ``--kernels-only`` stops after phase 4b (a short call, or a checkout
 of an earlier design of the kernels).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises,
@@ -589,6 +607,103 @@ def check_simhash(eng, envs, gen, dev) -> dict:
     return result
 
 
+@contextlib.contextmanager
+def tree_loops():
+    """The search's batched loops in place of the descent and backup
+    kernels, for the comparisons."""
+    from takzero_torch.search import core
+
+    kernels = core._tree_kernels
+    core._tree_kernels = lambda tree: False
+    try:
+        yield
+    finally:
+        core._tree_kernels = kernels
+
+
+def clone_tree(tree, device=None):
+    """A copy of ``tree`` (on ``device``, by default its own)."""
+    def copy(x):
+        return x.clone() if device is None else x.to(device, copy=True)
+
+    return tree._replace(**{f: copy(getattr(tree, f)) for f in tree._fields if f != "node_env"},
+                         node_env=tree.node_env.map(copy))
+
+
+def check_tree_kernels(dev) -> dict:
+    """4b: the descent and backup kernels against the batched loops on a
+    searched tree at each selfplay cell's shape, and their times."""
+    import torch
+
+    from takzero_torch.ops import tree as tree_ops
+    from takzero_torch.search import core
+    from takzero_torch.search.agents import simple_evaluator
+    from takzero_torch.search.gumbel import make_gumbel_search
+    from takzero_torch.search.openings import make_new_opening
+    from takzero_torch.search.tree import init_tree
+    from takzero_torch.selfplay import gumbel_noise
+    from takzero_torch.tak.engine import engine
+
+    out = {}
+    b, k, budget, depth = 128, 64, 384, 48
+    for n, c in ((6, 256), (5, 128)):
+        eng = engine(n, half_komi=4)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        envs = make_new_opening(eng)(torch.randint(0, 8, (b,), generator=gen, device=dev),
+                                     torch.randint(0, 2, (b,), generator=gen, device=dev))
+        evaluate = simple_evaluator(eng)
+        tree = init_tree(eng, envs, 2 * budget + 8, c)
+        tree, _ = make_gumbel_search(eng, evaluate, k, budget, max_depth=depth)(
+            tree, gumbel_noise(gen, (b, c)), torch.zeros(b, device=dev))
+        phases = core.make_simulate(eng, evaluate, max_depth=depth).phases
+        beta = torch.zeros(b, device=dev)
+        slot = tree.child_visit[:, 0].argmax(-1)  # the most visited root child: expanded
+        for forced in (True, False):
+            kern, loop = clone_tree(tree), clone_tree(tree)
+            got = phases["descend"](kern, beta, slot if forced else None, forced)
+            with tree_loops():
+                want = phases["descend"](loop, beta, slot if forced else None, forced)
+            torch.cuda.synchronize()
+            for name, x in want.items():
+                u, v = (got[name], x) if x.dtype != torch.float32 else (got[name].view(torch.int32), x.view(torch.int32))
+                if not torch.equal(u, v):
+                    raise AssertionError(f"descent kernel {n}x{n} forced={forced}: {name} differs from the loop's")
+            expect_trees_close(kern, clone_tree(loop, "cpu"), f"descent kernel {n}x{n} forced={forced}", 0.0)
+        # The backup of the forced descent's paths, after its evaluation.
+        base = clone_tree(tree)
+        rec = phases["forward"](base, beta, slot, True)
+        logits, v_net, var_net = evaluate(rec["env_eval"])
+        phases["apply_eval"](base, rec, logits, v_net, var_net)
+        kern, loop = clone_tree(base), clone_tree(base)
+        phases["backward"](kern, rec, v_net, var_net, True)
+        with tree_loops():
+            phases["backward"](loop, rec, v_net, var_net, True)
+        torch.cuda.synchronize()
+        expect_trees_close(kern, clone_tree(loop, "cpu"), f"backup kernel {n}x{n}", 0.0)
+
+        loop_state = phases["descend"](clone_tree(tree), beta, slot, True)
+        levels = int(torch.where(loop_state["active"], depth, loop_state["length"]).sum())
+        up = int(rec["length"].clamp(min=1).sub(1).sum())  # levels j >= 1 under skip_root
+        timed, rec_out = clone_tree(tree), core._descent_buffers(b, depth, dev)
+        walks = {
+            "descend": (lambda: tree_ops.tree_descend(timed, beta, slot, True, depth, rec_out),
+                        levels * 8 * 4 * c + b * (depth * 8 + 48)),
+            "backup": (lambda: tree_ops.tree_backup(timed, rec, v_net, var_net, True), up * 4 * 4 * c),
+        }
+        for name, (fn, nbytes) in walks.items():
+            ms, how = device_ms(fn)
+            loops_fn = (lambda: phases["descend"](timed, beta, slot, True)) if name == "descend" else \
+                (lambda: phases["backward"](timed, rec, v_net, var_net, True))
+            with tree_loops():
+                loops_ms = call_ms(loops_fn, iters=20, warmup=3)
+            row = dict(shape=[b, c], levels=levels if name == "descend" else up, kernel_ms=ms,
+                       call_ms=call_ms(fn), loops_call_ms=loops_ms, bytes=nbytes, timing={"kernel": how})
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 0)
+            log({"phase": f"tree kernel {name}, {n}x{n}", **row})
+            out[f"{name}_{n}x{n}"] = row
+    return out
+
+
 def check_topk_8x8(gen, dev) -> dict:
     """3b: kernel A on rows too wide for shared memory, 8x8's f32[128, 65216]:
     masked logits of random 8x8 positions and the adversarial rows, with
@@ -792,19 +907,16 @@ def run_main_path(dev) -> tuple[dict, object]:
     import torch
 
     from takzero_torch import bench
-    from takzero_torch.ops import simhash, topk
     from takzero_torch.tak.engine import engine
 
     # The flagship configuration, one timed move after the warm-up (the
     # bench's default is two: cut to keep the smoke inside its time).
     cfg = bench.BenchConfig(moves=1)
-    topk.exact_top_k_unsorted.launches = 0
-    simhash.simhash_pack.launches = 0
+    _zero_launch_counts()
     res = bench.run(cfg, device=dev)
-    launches = {
-        "exact_top_k_unsorted": topk.exact_top_k_unsorted.launches,
-        "simhash_pack": simhash.simhash_pack.launches,
-    }
+    # Each simulation: one descent, one expansion top-k (kernel A), one
+    # SimHash (kernel B) and one backup, graph replays included.
+    launches = {**_launch_counts(), **_tree_launch_counts()}
     expect = (cfg.budget + 1) * (cfg.moves + 1)  # the warm-up move included
     for name, count in launches.items():
         if count != expect:
@@ -1130,25 +1242,41 @@ def check_kernels_4x4(gen, dev) -> dict:
 
 
 def _launch_counts() -> dict:
+    """Kernel A's and B's counters."""
     from takzero_torch.ops import simhash, topk
 
     return {"exact_top_k_unsorted": topk.exact_top_k_unsorted.launches,
             "simhash_pack": simhash.simhash_pack.launches}
 
 
+def _tree_launch_counts() -> dict:
+    """The descent and backup kernels' counters."""
+    from takzero_torch.ops import tree
+
+    return {"tree_descend": tree.tree_descend.launches, "tree_backup": tree.tree_backup.launches}
+
+
 def _zero_launch_counts() -> None:
-    from takzero_torch.ops import simhash, topk
+    """Kernel A's, B's and the tree kernels' counters to 0."""
+    from takzero_torch.ops import simhash, topk, tree
 
     topk.exact_top_k_unsorted.launches = 0
     simhash.simhash_pack.launches = 0
+    tree.tree_descend.launches = tree.tree_backup.launches = 0
 
 
-def _expect_launches(what: str, per: int, count: int, b_per: int | None = None) -> dict:
+def _expect_launches(what: str, per: int, count: int, b_per: int | None = None,
+                     tree_per: tuple[int, int] | None = None) -> dict:
     """Read the counters; kernel A must have launched ``per * count`` times
     and kernel B ``b_per * count`` (``b_per`` defaults to ``per``; 0 for a
-    net without SimHash)."""
+    net without SimHash).  ``tree_per``: (descents, backups) per count, for
+    a path whose searches the counts of the tree kernels are known for;
+    the returned counts then include theirs."""
     got = _launch_counts()
     want = {"exact_top_k_unsorted": per, "simhash_pack": per if b_per is None else b_per}
+    if tree_per is not None:
+        got.update(_tree_launch_counts())
+        want.update(tree_descend=tree_per[0], tree_backup=tree_per[1])
     for name, n in got.items():
         if n != want[name] * count:
             raise AssertionError(f"{what}: {name} launched {n} times, expected {want[name]} x {count}")
@@ -1279,7 +1407,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         zero_counts()
         sp = selfplay.main(common + search + ["--seed", "1", "--max-games", str(games)])
         del sp["agent"]
-        sp_launches = _expect_launches("selfplay driver", per_move, sp["moves"], b_per)
+        sp_launches = _expect_launches("selfplay driver", per_move, sp["moves"], b_per, (per_move, per_move))
         # 3. Ten learner steps on the selfplay targets.
         lr = learn.main(learner + ["--seed", "2", "--pretrain-steps", "0", "--max-steps", "10"])
         if lr["steps"] != 10:
@@ -1287,7 +1415,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         # 4. Two more moves: one reload, and the seen-set of the whole log.
         zero_counts()
         sp2 = selfplay.main(common + search + ["--seed", "3", "--max-steps", "2"])
-        _expect_launches("selfplay driver, 2 moves", per_move, 2, b_per)
+        _expect_launches("selfplay driver, 2 moves", per_move, 2, b_per, (per_move, per_move))
         if sp2["reloads"] != 1:
             raise AssertionError(f"the selfplay poller reloaded {sp2['reloads']} times, expected 1")
         if hashed:
@@ -1317,7 +1445,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         # 5. Two reanalyze steps on the exploded replays.
         zero_counts()
         re = reanalyze.main(common + search + ["--seed", "4", "--min-positions", str(batch), "--max-steps", "2"])
-        re_launches = _expect_launches("reanalyze", per_move, re["steps"], b_per)
+        re_launches = _expect_launches("reanalyze", per_move, re["steps"], b_per, (per_move, per_move))
         if re["steps"] != 2 or re["targets"] != 2 * batch:
             raise AssertionError(f"reanalyze: {re['steps']} steps and {re['targets']} targets")
         # 6. One train step on reanalyze targets (the learner mixes them in
@@ -1550,7 +1678,9 @@ def run_tei(engine_, tps: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     chunks = len(infos1) + len(infos2) + len(infos3)
-    launches = _expect_launches("TEI", 2, chunks)
+    # A chunk: one plain simulation (a descent, a backup) and the serve
+    # chunk, whose wavefront has its own loops.
+    launches = _expect_launches("TEI", 2, chunks, tree_per=(1, 1))
     out = {"phase": "serve: TEI session", "net": "net6_simhash (16x256 bf16, SimHash 2^32)", "card": card_line(),
            "chunks": chunks, "sims_per_chunk": SIM_CHUNK, "bestmoves": [best1, best2, best3],
            "reused_root_visits": reused, "child_visits_before": child_visits,
@@ -1596,8 +1726,11 @@ def run_analysis(engine_, tps: str, dev) -> dict:
     tree = run(tree)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _launch_counts()
-    want = {"exact_top_k_unsorted": analysis.SIM_CHUNK, "simhash_pack": 2}
+    launches = {**_launch_counts(), **_tree_launch_counts()}
+    # One simulation, then simulate_batch: a descent a simulation, and a
+    # backup of its known stops and one of its leaves a batched one.
+    want = {"exact_top_k_unsorted": analysis.SIM_CHUNK, "simhash_pack": 2, "tree_descend": analysis.SIM_CHUNK,
+            "tree_backup": 2 * analysis.SIM_CHUNK - 1}
     if launches != want:
         raise AssertionError(f"analysis chunk: launches {launches}, expected {want}")
     if int(tree.root_visit[0]) != analysis.SIM_CHUNK:
@@ -1651,7 +1784,7 @@ def run_evaluation(dev, games: int = 32, sampled: int = 4, budget: int = 8, max_
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     half_moves = sum(r.half_moves for *_, r in results)
-    launches = _expect_launches("evaluation driver", budget + 1, half_moves)
+    launches = _expect_launches("evaluation driver", budget + 1, half_moves, tree_per=(budget + 1, budget + 1))
     lines = [x for x in buf.getvalue().splitlines() if " vs. " in x]
     if len(lines) != 2:
         raise AssertionError(f"evaluation driver: {len(lines)} match lines, expected 2")
@@ -1694,7 +1827,7 @@ def run_puzzles(engine_, dev, sampled: int = 8, budget: int = 24) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     batches = sum(math.ceil(n / puzzle.BATCH_SIZE) for n in PUZZLE_COUNTS.values())
-    launches = _expect_launches("puzzle driver", budget + 1, batches)
+    launches = _expect_launches("puzzle driver", budget + 1, batches, tree_per=(budget + 1, budget + 1))
     got = [(r.category, r.attempted) for r in results]
     if got != [(c, n) for (c, _), n in PUZZLE_COUNTS.items()]:
         raise AssertionError(f"puzzle driver attempted {got}, the database holds {list(PUZZLE_COUNTS.values())}")
@@ -3849,6 +3982,7 @@ def main() -> int:
     envs = random_positions(eng, 128, 40, gen, dev)
     topk_out = check_topk(eng, envs, gen, dev)
     simhash_out = check_simhash(eng, envs, gen, dev)
+    tree_out = check_tree_kernels(dev)
     if kernels_only:
         log({"phase": "done", "seconds": time.perf_counter() - t_start, "kernels_only": True})
         return 0
@@ -3958,6 +4092,20 @@ def main() -> int:
         # Phase 18b: one move under each top-k impl, read from the counters.
         entry["topk_ab_launches_per_move"] = {k: v["launches"][name] for k, v in topk_ab["moves"]["impls"].items()}
     kernels[0]["topk_impls_us_per_call"] = topk_ab["impls"]["us_per_call"]
+    # The descent and backup kernels: their launches on the paths that
+    # check them, read from the counters in this run, and phase 4b.
+    for name, walk, replaces in (("tree_descend", "descend", "takzero_tpu/search/core.py:101 (a batched loop)"),
+                                 ("tree_backup", "backup", "takzero_tpu/search/core.py:430 (a batched loop)")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "takzero_torch/csrc/tree.cu", "replaces": replaces,
+            "checked": True, "launches": launches[name],
+            "selfplay_driver_launches": loop["launches"]["selfplay_driver"][name],
+            "reanalyze_launches": loop["launches"]["reanalyze"][name],
+            "tei_launches": serve["tei"]["launches"][name], "analysis_launches": serve["analysis"]["launches"][name],
+            "evaluation_launches": serve["evaluation"]["launches"][name],
+            "puzzle_launches": serve["puzzles"]["launches"][name],
+            "at_6x6": tree_out[f"{walk}_6x6"], "at_5x5": tree_out[f"{walk}_5x5"],
+        })
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())
     log({"kernels": kernels})

@@ -32,6 +32,8 @@ KERNELS = {
     "topk": ("topk.cu", {"topk_launch": [_P, _P, _P, _I, _I, _I, _P],
                          "topk_wide_launch": [_P, _P, _P, _P, _I, _I, _I, _P]}),
     "simhash": ("simhash.cu", {"simhash_launch": [_P, _P, _P, _I, _I, _I, _P]}),
+    "tree": ("tree.cu", {"tree_descend_launch": [_P] * 26 + [_I] * 6 + [_P],
+                         "tree_backup_launch": [_P] * 22 + [_I] * 6 + [_P]}),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

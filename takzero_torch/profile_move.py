@@ -16,11 +16,13 @@ events (kernels and copies), the device's idle share (1 - device time /
 wall time), the number of device events and of host syncs (``aten::item``
 and ``aten::is_nonzero`` calls), the device time of the network's
 convolutions (every kernel under ``aten::convolution``, layout transposes
-included), the move's simulation middles by how they ran (eager, captured
-into CUDA graphs or replayed: ``search/core.py`` ``MIDDLES``), and the
+included), the move's simulations by how their phases ran (eager, captured
+into CUDA graphs or replayed: ``search/core.py`` ``MIDDLES``), per
+simulation (``budget + 1`` a move): the device events, the CUDA graph
+launches, the host syncs inside the search's ``search.*`` spans and the
+launches of the descent and backup kernels (their counters), and the
 operators that take the most host time and the kernels that take the most
-device time.  The full operator
-table goes to ``--out``.
+device time.  The full operator table goes to ``--out``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .bench import BenchConfig, setup
+from .ops import tree as tree_ops
 from .search import core
+
+SYNC_OPS = ("aten::item", "aten::is_nonzero")
+SEARCH_SPANS = ("search.forward", "search.evaluate", "search.apply_eval", "search.backward")
 
 
 def _top(rows, key, n: int = 12) -> list:
@@ -54,6 +60,17 @@ def _device_us(row) -> float:
 
 def _device_total_us(row) -> float:
     return getattr(row, "device_time_total", getattr(row, "cuda_time_total", 0.0))
+
+
+def _inside_search(events) -> int:
+    """Host syncs (``SYNC_OPS``) that lie inside a ``search.*`` span of
+    their own thread."""
+    spans: dict = {}
+    for e in events:
+        if e.name in SEARCH_SPANS and e.device_type == DeviceType.CPU:
+            spans.setdefault(e.thread, []).append((e.time_range.start, e.time_range.end))
+    return sum(1 for e in events if e.name in SYNC_OPS and e.device_type == DeviceType.CPU
+               and any(s <= e.time_range.start and e.time_range.end <= t for s, t in spans.get(e.thread, ())))
 
 
 def main() -> None:
@@ -74,6 +91,7 @@ def main() -> None:
     sync()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     middles = dict(core.MIDDLES)
+    walks = (tree_ops.tree_descend.launches, tree_ops.tree_backup.launches)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         st.move()
@@ -82,10 +100,13 @@ def main() -> None:
     rows = prof.key_averages()
     # A span (``utils/profile.py``) also shows as a device range over the
     # kernels it launched: count kernels and copies only.
-    on_device = [e for e in prof.events()
+    events = prof.events()
+    on_device = [e for e in events
                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.time_range.elapsed_us() for e in on_device)
-    syncs = sum(r.count for r in rows if r.key in ("aten::item", "aten::is_nonzero"))
+    syncs = sum(r.count for r in rows if r.key in SYNC_OPS)
+    sims = args.budget + 1
+    graph_launches = sum(1 for e in events if e.name.startswith("cudaGraphLaunch"))
     conv_us = sum(_device_total_us(r) for r in rows if r.key == "aten::convolution")
     host_rows = [r for r in rows if r.device_type == DeviceType.CPU]
     device_rows = [r for r in rows
@@ -104,6 +125,13 @@ def main() -> None:
         "host_syncs": syncs,
         "conv_device_ms": conv_us / 1e3,
         "middles": {k: core.MIDDLES[k] - middles[k] for k in middles},
+        "per_simulation": {
+            "device_events": len(on_device) / sims,
+            "graph_launches": graph_launches / sims,
+            "host_syncs_in_search": _inside_search(events) / sims,
+            "tree_kernel_launches": {"descend": (tree_ops.tree_descend.launches - walks[0]) / sims,
+                                     "backup": (tree_ops.tree_backup.launches - walks[1]) / sims},
+        },
         "top_by_host": _top(host_rows, lambda r: r.self_cpu_time_total),
         "top_by_device": _top(device_rows, _device_us),
         "table": str(out),

@@ -12,19 +12,23 @@ mcts.rs:268-328): K descents of the same trees, each known stop backed up
 at once, ONE evaluator call over the K*B stacked leaves, then K guarded
 expansions and leaf backups.
 
-The two data-dependent ``while_loop``s of the JAX program become Python
-loops with one host check per level, which keeps JAX's semantics exactly:
-the descent runs while ``depth < max_depth and active.any()`` (one
-``.any()`` sync per level) and the backup runs from ``jmax - 1`` down to
-the root (one ``.item()`` sync per simulation, read right after the
-descent's loop).  Each read is a ``sync`` span, and each phase of a
-simulation a ``search.*`` span (``utils/profile.py``).
+On a CUDA tree the two data-dependent ``while_loop``s of the JAX program,
+the descent and the backup, are hand-written kernels that walk each lane's
+path with no host read (``ops/tree.py``, ``csrc/tree.cu``; their per-lane
+algorithm in plain torch is ``search/lanewise.py``).  On the CPU they are
+Python loops of batched operators with one host check per level, which
+keep JAX's semantics exactly: the descent runs while ``depth < max_depth
+and active.any()`` (one ``.any()`` sync per level) and the backup runs
+from ``jmax - 1`` down to the root (one ``.item()`` sync per simulation).
+Each read is a ``sync`` span, and each phase of a simulation a
+``search.*`` span (``utils/profile.py``).
 
-Between the loop and the backup a simulation has fixed shapes and no host
-read: the forward tail (``settle``), the evaluator and ``apply_eval``.
-Within one search (``simulate.search_scope``, which the Gumbel search
-opens) on a CUDA device, that middle is captured into CUDA graphs in the
-second simulation and replayed in every later one (``_SearchGraphs``).
+The rest of a simulation has fixed shapes and no host read: the forward
+tail (``settle``), the evaluator and ``apply_eval``.  So on a CUDA tree a
+whole simulation has none, and within one search
+(``simulate.search_scope``, which the Gumbel search opens) its phases are
+captured into CUDA graphs in the second simulation and replayed in every
+later one (``_SearchGraphs``).
 
 Trees are updated in place.
 """
@@ -40,6 +44,7 @@ import torch
 
 from ..ops import simhash as _simhash
 from ..ops import topk as _topk
+from ..ops import tree as _tree
 from ..ops.topk import exact_top_k_unsorted, exact_top_k_unsorted_grouped, lax_top_k, topk_plain
 from ..tak.engine import TakEngine
 from ..tak.state import where_state
@@ -76,6 +81,13 @@ def _kernel_a(x: torch.Tensor, k: int):
     caller may put a recording or counting version in its place
     (``chip_smoke.py``, the tests)."""
     return exact_top_k_unsorted(x, k)
+
+
+def _tree_kernels(tree: Tree) -> bool:
+    """Whether ``tree``'s descent and backup run as the kernels of
+    ``ops/tree.py``: on a CUDA tree.  The CPU runs the batched loops.
+    Looked up at each call, so that a test may hold the loops on the card."""
+    return tree.child_visit.is_cuda
 
 
 def make_topk(impl: str = "auto") -> Callable:
@@ -127,19 +139,22 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
     capture_evaluator = getattr(evaluator, "capturable", False) is True
 
     def descend(tree: Tree, beta, forced_slot, skip_root: bool, out: dict | None = None) -> dict:
-        """The descent's level loop: selection from the root down to the
-        first unexpanded child of each lane, or to ``max_depth``.  Its
-        outputs (:func:`_descent_buffers`' fields) are written in place into
+        """The descent: selection from the root down to the first
+        unexpanded child of each lane, or to ``max_depth``; the descent
+        kernel on a CUDA tree, else the level loop.  Its outputs
+        (:func:`_descent_buffers`' fields) are written in place into
         ``out``, a search's buffers at fixed addresses, or into fresh
         tensors."""
         b, m, c = tree.child_visit.shape
         dev = tree.child_visit.device
+        o = _descent_buffers(b, max_depth, dev) if out is None else out
+        if _tree_kernels(tree):
+            return _tree.tree_descend(tree, beta, forced_slot, skip_root, max_depth, o)
         bar = torch.arange(b, device=dev)
 
         if not skip_root:
             tree.root_visit.add_(1)
 
-        o = _descent_buffers(b, max_depth, dev) if out is None else out
         root_unexp = ~tree.root_expanded()
         torch.bitwise_and(root_unexp, tree.root_flag == 0, out=o["lane_root_expand"])
 
@@ -212,18 +227,6 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
             d += 1
         return o
 
-    def backup_depth(loop: dict) -> int:
-        """The deepest level that ``backward`` in mode "all" backs up, read
-        on the host right after the level loop (one host sync).  Its lanes
-        are those of a known stop, a depth clip or a leaf: ``settle`` only
-        moves terminal leaves to the known stops and sets the clipped
-        lanes' length to ``max_depth``, so this is the value ``backward``
-        would read after the middle, and the host dispatches the backup
-        while the middle runs on the device."""
-        reach = loop["stop_known"] | loop["active"] | loop["stop_leaf"]
-        length = torch.where(loop["active"], max_depth, loop["length"])
-        return host_item(torch.where(reach, length, 0).max())
-
     def settle(tree: Tree, loop: dict) -> dict:
         """From the end of the level loop to the evaluation: the depth
         clip, the path's visits, the leaf environments and terminal
@@ -292,10 +295,10 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
             env_eval=env_eval,
         )
 
-    def forward(tree: Tree, beta, forced_slot, skip_root: bool):
-        """The descent and its settling, in fresh tensors: a simulation's
-        ``rec``."""
-        return settle(tree, descend(tree, beta, forced_slot, skip_root))
+    def forward(tree: Tree, beta, forced_slot, skip_root: bool, out: dict | None = None):
+        """The descent (into ``out`` or fresh tensors) and its settling: a
+        simulation's ``rec``."""
+        return settle(tree, descend(tree, beta, forced_slot, skip_root, out))
 
     def apply_eval(tree: Tree, rec, logits, v_net, var_net):
         b, m, c = tree.child_visit.shape
@@ -368,10 +371,14 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         tree.overflow.add_((evaluated & ~can_expand).to(torch.int32))
         return tree
 
-    def backward(tree: Tree, rec, v_net, var_net, skip_root: bool, mode: str = "all", jmax: int | None = None):
+    def backward(tree: Tree, rec, v_net, var_net, skip_root: bool, mode: str = "all"):
         """``mode``: "all" (known stops and evaluated leaves), "known" or
-        "leaf".  ``jmax``, the deepest level to back up, is read here (one
-        host sync) unless the caller read it already (``backup_depth``)."""
+        "leaf".  The backup kernel on a CUDA tree; else the level loop,
+        from the deepest level to back up, ``jmax``, read here (one host
+        sync)."""
+        if _tree_kernels(tree):
+            _tree.tree_backup(tree, rec, v_net, var_net, skip_root, mode)
+            return tree
         b, m, c = tree.child_visit.shape
         bar = torch.arange(b, device=tree.child_visit.device)
         path_node, path_slot = rec["path_node"], rec["path_slot"]
@@ -391,8 +398,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         pvar = torch.where(stop_known, 0.0, ev.DISCOUNT**2 * var_net)
 
         min_j = 1 if skip_root else 0
-        if jmax is None:
-            jmax = host_item(torch.where(active_bwd, length, 0).max())  # one host sync
+        jmax = host_item(torch.where(active_bwd, length, 0).max())  # one host sync
 
         for j in range(jmax - 1, min_j - 1, -1):
             part = active_bwd & (j < length)
@@ -465,35 +471,34 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         return tree
 
     def simulate(tree: Tree, beta, forced_slot=None, *, skip_root: bool = False, graphs=None):
-        beta = _betas(tree, beta)
         if graphs is None:
-            run = _eager
+            run, loop, beta = _eager, None, _betas(tree, beta)
         else:
-            graphs.check(tree)
-            run = graphs.run
+            graphs.check(tree, skip_root, forced_slot is None)
+            run, loop = graphs.run, graphs.loop
+            beta, forced_slot = graphs.inputs(beta, forced_slot)
         with span("search.forward"):
-            loop = descend(tree, beta, forced_slot, skip_root, None if graphs is None else graphs.loop)
-            jmax = backup_depth(loop)
-            rec = run("forward", lambda: settle(tree, loop))
+            rec = run("forward", lambda: forward(tree, beta, forced_slot, skip_root, loop))
         with span("search.evaluate"):
             logits, v_net, var_net = run("evaluate", lambda: evaluator(rec["env_eval"]))
         with span("search.apply_eval"):
             run("apply_eval", lambda: apply_eval(tree, rec, logits, v_net, var_net))
-        MIDDLES["eager" if graphs is None else graphs.end_simulation()] += 1
         with span("search.backward"):
-            return backward(tree, rec, v_net, var_net, skip_root, jmax=jmax)
+            run("backward", lambda: backward(tree, rec, v_net, var_net, skip_root))
+        MIDDLES["eager" if graphs is None else graphs.end_simulation()] += 1
+        return tree
 
     @contextlib.contextmanager
     def search_scope(tree: Tree):
         """``simulate`` for the simulations of one search of ``tree``.
 
-        On a CUDA device their middles (``settle``, the evaluator and
-        ``apply_eval``) run from CUDA graphs (:class:`_SearchGraphs`), which
-        read ``tree``'s storage and this evaluator's state as they are
-        during the search and are released when the scope closes.
-        Elsewhere it is ``simulate`` itself."""
-        dev = tree.child_visit.device
-        if dev.type != "cuda":
+        On a CUDA device their phases (the descent kernel and ``settle``,
+        the evaluator, ``apply_eval``, the backup kernel) run from CUDA
+        graphs (:class:`_SearchGraphs`), which read ``tree``'s storage and
+        this evaluator's state as they are during the search and are
+        released when the scope closes.  Elsewhere it is ``simulate``
+        itself."""
+        if not _tree_kernels(tree):
             yield simulate
             return
         graphs = _SearchGraphs(tree, max_depth, capture_evaluator)
@@ -539,12 +544,12 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
     # The phases of one simulation, for the tools that time them
     # (``tools/phase_cliff.py``), as JAX's ``simulate.phases``.
     simulate.phases = dict(forward=forward, apply_eval=apply_eval, backward=backward, descend=descend,
-                           backup_depth=backup_depth, settle=settle)
+                           settle=settle)
     simulate.search_scope = search_scope
     return simulate, simulate_batch
 
 
-# Middles of simulations run in this process, by how they ran: eagerly,
+# Simulations run in this process, by how their phases ran: eagerly,
 # captured into a search's CUDA graphs (and replayed once), or replayed.
 MIDDLES = {"eager": 0, "captured": 0, "replayed": 0}
 
@@ -596,14 +601,18 @@ def _eager(phase: str, fn: Callable):
 
 
 def _launch_counts() -> tuple:
-    """Kernel A's and B's host counters, on the wrappers their modules
-    hold now (a test may hold a counting one in a wrapper's place)."""
-    return _topk.exact_top_k_unsorted.launches, _simhash.simhash_pack.launches
+    """The host counters of kernels A and B and of the descent and backup
+    kernels, on the wrappers their modules hold now (a test may hold a
+    counting one in a wrapper's place)."""
+    return (_topk.exact_top_k_unsorted.launches, _simhash.simhash_pack.launches,
+            _tree.tree_descend.launches, _tree.tree_backup.launches)
 
 
 def _add_launches(added: tuple) -> None:
     _topk.exact_top_k_unsorted.launches += added[0]
     _simhash.simhash_pack.launches += added[1]
+    _tree.tree_descend.launches += added[2]
+    _tree.tree_backup.launches += added[3]
 
 
 def _captured(fn: Callable, pool, stream: torch.cuda.Stream):
@@ -640,35 +649,62 @@ def _capture_resources(index: int):
 
 
 class _SearchGraphs:
-    """The middles of one search's simulations on a CUDA device.
+    """The phases of one search's simulations on a CUDA device.
 
-    The first simulation runs its middle eagerly, which warms cuDNN's
-    algorithm choice, kernels A's and B's one-time attributes and the
-    engine's device tables.  The second captures each phase of its middle
-    into a CUDA graph in one shared pool, on a side stream, and replays it;
-    every later simulation replays them: the forward tail (``settle``),
-    the evaluator where it is ``capturable``, and ``apply_eval``.  An
-    evaluator that is not runs eagerly, and its outputs are copied to
-    fixed addresses for ``apply_eval``'s graph.  The level loop writes its
-    outputs into ``loop``, the forward tail's inputs; each graph's outputs
-    are static tensors that the backup reads, and stream order keeps the
-    next replay behind the backup's reads.  A replay adds to kernels A's
-    and B's counters the launches its capture counted.
+    The first simulation runs eagerly, which builds the kernels and warms
+    cuDNN's algorithm choice, kernels A's and B's one-time attributes and
+    the engine's device tables.  Each later simulation replays a CUDA
+    graph of each phase, captured at its first use in one shared pool, on
+    a side stream: the forward (the descent kernel and ``settle``), the
+    evaluator where it is ``capturable``, ``apply_eval`` and the backward
+    (the backup kernel).  The graphs fix ``skip_root`` and whether a slot
+    is forced as the capture found them (the Gumbel search's simulations
+    after its first are all forced under ``skip_root``), and a later
+    simulation that differs raises.  An evaluator that is not capturable runs
+    eagerly, and its outputs are copied to fixed addresses for the later
+    graphs.  Every input the graphs read lies at a fixed address: the
+    tree, ``beta`` and the forced slot (copied into ``beta`` and
+    ``forced`` each simulation), the descent's outputs (``loop``) and each
+    graph's outputs; stream order keeps each replay behind the reads of
+    the last.  A replay adds to the kernels' counters the launches its
+    capture counted.
     """
 
     def __init__(self, tree: Tree, max_depth: int, capture_evaluator: bool):
         dev = tree.child_visit.device
+        b = tree.batch_size
         self.tree = tree
-        self.loop = _descent_buffers(tree.batch_size, max_depth, dev)
+        self.loop = _descent_buffers(b, max_depth, dev)
+        self.beta = torch.empty((b,), dtype=torch.float32, device=dev)
+        self.forced = torch.empty((b,), dtype=torch.int64, device=dev)
         self.capture_evaluator = capture_evaluator
         self.pool, self.stream, _ = _capture_resources(dev.index)
         self.sims = 0
+        self.variant = None  # (skip_root, no forced slot) of the graphed simulations
         self.graphs: dict = {}  # phase -> (graph, its outputs, launches it adds)
         self.static = None  # an eager evaluator's outputs at fixed addresses
 
-    def check(self, tree: Tree) -> None:
+    def check(self, tree: Tree, skip_root: bool, unforced: bool) -> None:
         if tree is not self.tree:
             raise ValueError("a search scope's simulations must search the tree it was opened on")
+        if self.sims == 0:
+            return
+        if self.variant is None:
+            self.variant = (skip_root, unforced)
+        elif self.variant != (skip_root, unforced):
+            raise ValueError(f"a search scope's graphs were captured with (skip_root, no forced slot) = "
+                             f"{self.variant}, not {(skip_root, unforced)}")
+
+    def inputs(self, beta, forced_slot) -> tuple:
+        """(beta, forced slot or None) at the fixed addresses the graphs
+        read: ``beta`` a number or a tensor that broadcasts to [B]."""
+        if isinstance(beta, torch.Tensor):
+            self.beta.copy_(beta)
+        else:
+            self.beta.fill_(float(beta))
+        if forced_slot is None:
+            return self.beta, None
+        return self.beta, self.forced.copy_(forced_slot)
 
     def run(self, phase: str, fn: Callable):
         if self.sims == 0:
@@ -700,6 +736,7 @@ class _SearchGraphs:
 
     def close(self) -> None:
         graphs, self.graphs, self.static, self.loop, self.tree = self.graphs, {}, None, None, None
+        self.beta = self.forced = None
         for graph, _, _ in graphs.values():
             graph.reset()
 

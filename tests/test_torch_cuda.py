@@ -271,28 +271,128 @@ def test_topk_kernel_at_one_4x4_tree(cuda, k):
         _expect_topk_equal(_adversarial_rows(944, gen)[16 * row : 16 * row + 1].contiguous().to(cuda), k)
 
 
+def _with_loops(monkeypatch, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the search's batched loops in place of
+    the descent and backup kernels."""
+    from takzero_torch.search import core
+
+    with monkeypatch.context() as m:
+        m.setattr(core, "_tree_kernels", lambda tree: False)
+        return fn(*args, **kwargs)
+
+
+def _outputs_equal(got: dict, want: dict, where: str) -> None:
+    for name, x in want.items():
+        u, v = got[name], x
+        if u.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        assert torch.equal(u, v), f"{where}: {name}"
+
+
+@pytest.mark.parametrize("n,c", [(6, 256), (5, 128)])
+def test_tree_kernels_equal_the_plain_walks_and_the_loops(cuda, monkeypatch, n, c):
+    """The descent and backup kernels at C=256 (6x6) and C=128 (5x5), 32
+    lanes, on a searched tree marked for the solver (proven wins, losses
+    and draws, incomplete nodes, nodes of proven-win children only): every
+    output and tree array bit for bit equal to the per-lane plain
+    statements and to the batched loops, with and without a forced slot
+    and ``skip_root``, at depth clips, and in the backup's three modes."""
+    from takzero_torch.ops import tree as tree_ops
+    from takzero_torch.search import core
+    from takzero_torch.search.lanewise import backup_plain, descend_plain
+    from test_torch_lanewise import clone, forced_slot, marked_tree, stub_evaluator
+
+    b = 32
+    eng, gen, tree = _with_loops(monkeypatch, marked_tree, n, n, b, c, cuda)
+    for forced, skip_root, depth in ((False, False, 48), (True, True, 48), (False, False, 1), (True, True, 1)):
+        where = f"descent forced={forced} skip_root={skip_root} depth={depth}"
+        beta = (torch.rand(b, generator=gen) * 0.5).to(cuda)
+        slot = forced_slot(tree, gen) if forced else None
+        descend = core.make_simulate(eng, stub_evaluator(eng), max_depth=depth).phases["descend"]
+        kern, loop, plain = clone(tree), clone(tree), clone(tree)
+        before = tree_ops.tree_descend.launches
+        got = descend(kern, beta, slot, skip_root)
+        assert tree_ops.tree_descend.launches == before + 1
+        want = _with_loops(monkeypatch, descend, loop, beta, slot, skip_root)
+        lane = descend_plain(plain, beta, slot, skip_root, depth)
+        torch.cuda.synchronize()
+        _outputs_equal(got, want, where)
+        _outputs_equal(lane, want, where + " (plain)")
+        _trees_equal(kern, _on_cpu(loop), where)
+        _trees_equal(plain, _on_cpu(loop), where + " (plain)")
+    evaluate = stub_evaluator(eng)
+    phases = core.make_simulate(eng, evaluate, max_depth=8).phases
+    for mode, skip_root in (("all", False), ("all", True), ("known", False), ("leaf", False)):
+        where = f"backup mode={mode} skip_root={skip_root}"
+        base = clone(tree)
+        slot = forced_slot(base, gen) if skip_root else None
+        rec = _with_loops(monkeypatch, phases["forward"], base, core._betas(base, 0.25), slot, skip_root)
+        logits, v_net, var_net = evaluate(rec["env_eval"])
+        phases["apply_eval"](base, rec, logits, v_net, var_net)
+        kern, loop, plain = clone(base), clone(base), clone(base)
+        before = tree_ops.tree_backup.launches
+        phases["backward"](kern, rec, v_net, var_net, skip_root, mode)
+        assert tree_ops.tree_backup.launches == before + 1
+        _with_loops(monkeypatch, phases["backward"], loop, rec, v_net, var_net, skip_root, mode)
+        backup_plain(plain, rec, v_net, var_net, skip_root, mode)
+        torch.cuda.synchronize()
+        _trees_equal(kern, _on_cpu(loop), where)
+        _trees_equal(plain, _on_cpu(loop), where + " (plain)")
+        assert not torch.equal(loop.root_value, base.root_value) or not torch.equal(loop.child_value, base.child_value)
+
+
+@pytest.mark.parametrize("n,c", [(6, 256), (5, 128)])
+def test_simulate_batch_kernels_equal_the_loops(cuda, monkeypatch, n, c):
+    """``simulate_batch`` (K = 8 descents with their known stops backed up
+    at once, one evaluator call, K leaf backups: the backup kernel in modes
+    "known" and "leaf") on the card gives the batched loops' trees."""
+    from takzero_torch.search import core
+    from takzero_torch.search.tree import init_tree
+    from takzero_torch.tak import engine
+    from test_torch_lanewise import clone, roots, stub_evaluator
+
+    eng = engine(n, half_komi=4)
+    gen = torch.Generator().manual_seed(n)
+    simulate, simulate_batch = core.make_kernels(eng, stub_evaluator(eng), max_depth=16)
+    start = _with_loops(monkeypatch, simulate, init_tree(eng, roots(eng, gen, 32, device=cuda), 96, c), 0.25)
+    kern, loop = clone(start), clone(start)
+    for _ in range(3):
+        simulate_batch(kern, 0.25, 8)
+        _with_loops(monkeypatch, simulate_batch, loop, 0.25, 8)
+    torch.cuda.synchronize()
+    _trees_equal(kern, _on_cpu(loop), "simulate_batch")
+
+
 @pytest.mark.parametrize("evaluator", ["net", "simple"])
 @pytest.mark.parametrize("n,novelty", [(6, "simhash"), (5, "rnd")])
 def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evaluator):
-    """A Gumbel search on the card replays its simulations' middles from
-    CUDA graphs and gives the eager search's trees and chosen slots bit for
-    bit, at net6's and net5's board sizes with C=256 (32 games, k=16,
-    budget 64; a 32x2 bf16 net with SimHash over a half-set 2^20 seen-set,
-    or the MLP RND; or the simple evaluator, which runs eagerly between the
-    two graphs).  Kernels A's and B's counters read as eagerly; the search
-    engages 1 eager, 1 captured and budget - 1 replayed middles; and its
-    graphs leave no memory allocated when it returns."""
+    """A Gumbel search on the card runs its simulations' phases (the
+    descent kernel with the forward tail, the evaluator, ``apply_eval``,
+    the backup kernel) from CUDA graphs, and after each simulation every
+    tree array equals what the batched torch loops, run eagerly from the
+    same tree, make of it, at net6's and net5's board sizes and child slots,
+    C=256 and C=128 (32 games, k=16, budget 64; a 32x2 bf16 net with SimHash over a half-set
+    2^20 seen-set, or the MLP RND; or the simple evaluator, which runs
+    eagerly between the graphs).  The counters of kernels A and B and of
+    the two tree kernels read one launch a simulation (B's with the SimHash
+    net); the search engages 1 eager, 1 captured and budget - 1 replayed
+    simulations; and its graphs leave no memory allocated when it returns."""
+    import contextlib
+
+    from test_torch_lanewise import clone
+
     from takzero_torch.models.agent import make_net_evaluate, new_agent
     from takzero_torch.models.network import NetConfig
     from takzero_torch.search import core
     from takzero_torch.search.agents import simple_evaluator
+    from takzero_torch.search import gumbel as gumbel_module
     from takzero_torch.search.gumbel import make_gumbel_search
     from takzero_torch.search.openings import make_new_opening
     from takzero_torch.search.tree import init_tree
     from takzero_torch.selfplay import gumbel_noise
     from takzero_torch.tak import engine
 
-    b, k, budget, c = 32, 16, 64, 256
+    b, k, budget, c = 32, 16, 64, 256 if n == 6 else 128
     eng = engine(n, half_komi=4)
     cfg = NetConfig(n=n, half_komi=4, filters=32, blocks=2, novelty=novelty, hash_bits=20, rnd_mlp=True)
     gen = torch.Generator().manual_seed(n)
@@ -325,13 +425,73 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
     del tree, slot
     assert torch.cuda.memory_allocated(cuda) == level
     graphed = run()
-    with monkeypatch.context() as m:
-        m.setattr(core._SearchGraphs, "run", lambda self, phase, fn: fn())
-        eager = run()
-    assert launches == eager[2] == [budget + 1, budget + 1 if novelty == "simhash" and evaluator == "net" else 0]
+    assert launches == [budget + 1, budget + 1 if novelty == "simhash" and evaluator == "net" else 0,
+                        budget + 1, budget + 1]
     assert middles == {"eager": 1, "captured": 1, "replayed": budget - 1}
-    assert torch.equal(graphed[1], eager[1])
-    _trees_equal(graphed[0], _on_cpu(eager[0]), "graphed search")
+
+    checked = []
+
+    def stepwise(eng_, evaluator_, max_depth=48, topk="auto"):
+        """``make_simulate`` whose searches check each graphed simulation
+        against the loops run from a copy of the tree it starts from."""
+        simulate = core.make_simulate(eng_, evaluator_, max_depth=max_depth, topk=topk)
+        graphed_scope = simulate.search_scope
+
+        @contextlib.contextmanager
+        def scope(tree):
+            with graphed_scope(tree) as sim:
+                def checked_sim(t, beta, forced_slot=None, *, skip_root=False):
+                    ref = clone(t)
+                    _with_loops(monkeypatch, simulate, ref, beta, forced_slot, skip_root=skip_root)
+                    sim(t, beta, forced_slot, skip_root=skip_root)
+                    torch.cuda.synchronize()
+                    _trees_equal(t, _on_cpu(ref), f"simulation {len(checked)}")
+                    checked.append(True)
+                    return t
+
+                yield checked_sim
+
+        simulate.search_scope = scope
+        return simulate
+
+    with monkeypatch.context() as m:
+        m.setattr(gumbel_module, "make_simulate", stepwise)
+        stepped = make_gumbel_search(eng, evaluate, k, budget, max_depth=48)(init_tree(eng, envs, budget + 8, c),
+                                                                           gumbel, betas)
+    assert len(checked) == budget + 1
+    assert torch.equal(graphed[1], stepped[1])
+    _trees_equal(graphed[0], _on_cpu(stepped[0]), "graphed search")
+
+
+def test_a_search_scope_refuses_a_simulation_unlike_its_graphs(cuda):
+    """A search scope's graphs fix ``skip_root`` and whether a slot is
+    forced as their capture found them: the first simulation runs eagerly
+    whatever it is, the second captures, the third replays, and a later
+    one unlike them raises rather than replay graphs built for another."""
+    from takzero_torch.search import core
+    from takzero_torch.search.agents import simple_evaluator
+    from takzero_torch.search.openings import make_new_opening
+    from takzero_torch.search.tree import init_tree
+    from takzero_torch.tak import engine
+
+    b, c = 8, 64
+    eng = engine(4, half_komi=4)
+    gen = torch.Generator().manual_seed(4)
+    envs = make_new_opening(eng)(torch.randint(0, 8, (b,), generator=gen).to(cuda),
+                                 torch.randint(0, 2, (b,), generator=gen).to(cuda))
+    simulate = core.make_simulate(eng, simple_evaluator(eng), max_depth=8)
+    tree = init_tree(eng, envs, 16, c)
+    before = dict(core.MIDDLES)
+    with simulate.search_scope(tree) as sim:
+        sim(tree, 0.0)  # expands the roots
+        slot = (tree.child_action[:, 0] >= 0).int().argmax(-1)
+        sim(tree, 0.0, slot, skip_root=True)
+        sim(tree, 0.0, slot, skip_root=True)
+        with pytest.raises(ValueError, match="captured with"):
+            sim(tree, 0.0)
+        with pytest.raises(ValueError, match="captured with"):
+            sim(tree, 0.0, slot, skip_root=False)
+    assert {key: core.MIDDLES[key] - before[key] for key in before} == {"eager": 1, "captured": 1, "replayed": 1}
 
 
 def _on_cpu(tree):
