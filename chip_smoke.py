@@ -32,6 +32,19 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    loops'; timed (device time, call time, the loops' call time, the bytes
    bound: a level reads a node's row of 8 arrays in the descent, of 4 in
    the backup);
+4c. the evaluator's convolution kernel (``ops/conv.py``) at the selfplay
+   cells' tower layer, [128, 6x6, 256 -> 256] and [128, 5x5, 256 -> 256]
+   with the residual: the float32 sum within 1e-5 of sum |x*w| of float64,
+   the bf16 output within one rounding of the plain version; timed (device
+   time, call time, bound at 989 TFLOP/s, the plain version's call time,
+   and the present path's device time: cuDNN TF32 on float32 copies, the
+   residual, relu and cast); then the whole bf16 evaluator at net6's and
+   net5's widths, 128 rows, a launch at a time on the tiles the main path
+   takes: the stem on the float32 planes and each tower layer within one
+   rounding of the plain version, the head's policy, value and UBE
+   channels within 1e-5 of sum |x*w| of float64; ``apply_folded``'s
+   outputs that chain's bit for bit in 2 blocks + 2 launches; device time
+   through the kernel and through the cuDNN path;
 3b. kernel A on rows too wide for shared memory (after phase 4, so that
    ``--kernels-only`` still times earlier designs): 8x8's f32[128, 65216]
    on masked logits of random 8x8 positions and on the adversarial rows,
@@ -45,14 +58,16 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
 5. a small reference check: the 3x3 move program (dummy evaluator), the
    small network in float32 and in bf16 on the card against the same on
    the CPU, and one bf16 convolution at the flagship width against
-   float64 (the convolutions' float32 accumulation);
+   float64, through the convolution kernel and through cuDNN's TF32 (the
+   float32 accumulation);
 6. the main path: ``takzero_torch.bench`` at the flagship configuration
    (6x6, 16x256 bf16 net, SimHash 2^26, batch 128, k=64, budget 768,
    C=256, tree reuse), one warm-up move and one timed move (cut from the
    bench's two to keep the smoke inside its time).  The launch counters
    of kernels A and B and of the descent and backup kernels are set to 0
    before and must read (budget+1) per move after (a descent and a backup
-   a simulation); chosen actions must be legal and tree values finite;
+   a simulation), the convolution kernel's 34 (budget+1) (2 blocks + 2 an
+   evaluation); chosen actions must be legal and tree values finite;
 7. the learner, small reference: two ``tiny3`` train steps (``train_ube``
    False, then True) on the card against the same steps on the CPU, from
    the same weights and batches, in float32 and in bf16: metrics, BN
@@ -308,14 +323,16 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    backup kernels (``tree_descend``, ``tree_backup``) with their launches
    on the move program, the selfplay driver, reanalyze and the serve
    path, read from the counters in this run, and phase 4b's rows at
-   [128, C=256] (``at_6x6``) and [128, C=128] (``at_5x5``).
+   [128, C=256] (``at_6x6``) and [128, C=128] (``at_5x5``); last the
+   convolution kernel (``conv3x3``) with its launches on the move program
+   and phase 4c's rows (``at_6x6``, ``at_5x5``).
 
 Device time per call: 50 calls of the wrapper captured in one CUDA graph,
 the graph replayed 20 times between two CUDA events (the profiler's summed
 kernel time if capture fails; the phase line says which).  Call time per
 call: 200 back-to-back calls of the wrapper after 20 warm-up calls, between
 two CUDA events, which is what the main path pays with the host in the
-loop.  ``--kernels-only`` stops after phase 4b (a short call, or a checkout
+loop.  ``--kernels-only`` stops after phase 4c (a short call, or a checkout
 of an earlier design of the kernels).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises,
@@ -340,10 +357,11 @@ import time
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory bandwidth,
-# float32 outside the tensor cores, and TF32 in them.
+# float32 outside the tensor cores, and TF32 and bf16 in them.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12  # tensor cores, dense
+BF16_FLOPS = 989e12  # tensor cores, dense
 NEG = -3.0e38
 
 
@@ -704,6 +722,139 @@ def check_tree_kernels(dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def cudnn_folded_path():
+    """Inside, the bf16 folded path on the card takes the cuDNN TF32
+    convolutions of float32 copies that the kernel replaced (``_conv2d``,
+    the float32 path's code): the library yardstick of phase 4c."""
+    from takzero_torch.models import network
+
+    takes = network._takes_kernel
+    network._takes_kernel = lambda dtype, x: False
+    try:
+        yield
+    finally:
+        network._takes_kernel = takes
+
+
+def expect_conv_layer(x, layer, residual, what: str):
+    """One launch of the convolution kernel on ``x`` (the stem's float32
+    NCHW planes or bf16 NHWC activations) against the same function on the
+    same operands: a bf16 output within one rounding of the plain version
+    (plus 2e-5 of sum |x*w| + |residual|, the two float32 sums' orders),
+    the head's float32 outputs (policy, relued value and UBE maps) within
+    1e-5 of sum |x*w| of float64.  Returns the kernel's output and its
+    largest error: a share of one rounding, or of sum |x*w|."""
+    import torch
+    import torch.nn.functional as F
+
+    from takzero_torch.ops import conv
+
+    got = conv.conv3x3(x, layer, residual)
+    w64 = conv.unpack_weight(layer.weight).double()
+    x64 = x.to(torch.bfloat16).double() if x.dtype == torch.float32 else x.permute(0, 3, 1, 2).double()
+    x64 = F.pad(x64, (0, 0, 0, 0, 0, w64.shape[1] - x64.shape[1]))
+    acc = F.conv2d(x64, w64, padding=1) + layer.bias.double()[None, :, None, None]
+    scale = F.conv2d(x64.abs(), w64.abs(), padding=1)
+    if layer.split is not None:
+        policy, heads = (acc[:, : layer.split].flatten(1), scale[:, : layer.split].flatten(1)), \
+            (F.relu(acc[:, layer.split : layer.cout]).flatten(2), scale[:, layer.split : layer.cout].flatten(2))
+        err = max(float(((g.double() - want).abs() / sc.clamp(min=1e-30)).max())
+                  for g, (want, sc) in zip(got, (policy, heads)) if g.numel())
+        if err > 1e-5:
+            raise AssertionError(f"conv kernel, {what}: float32 error {err:.3g} of sum|x*w| > 1e-5")
+        return got, err
+    plain = conv.conv3x3_plain(x, layer, residual).float()
+    bound = scale if residual is None else scale + residual.permute(0, 3, 1, 2).double().abs()
+    one_rounding = torch.maximum(plain.abs(), got.float().abs()) * 2.0 ** -7 + 2e-5 * bound.permute(0, 2, 3, 1).float()
+    err = float(((got.float() - plain).abs() / one_rounding).max())
+    if err > 1:
+        raise AssertionError(f"conv kernel, {what}: bf16 output {err:.3g} roundings from the plain version")
+    return got, err
+
+
+def check_conv_kernel(dev) -> dict:
+    """4c: the evaluator's convolution kernel (``ops/conv.py``) at the
+    selfplay cells' tower layer [128, n x n, 256 -> 256] with its residual,
+    against float64 (the unrounded float32 sum, within 1e-5 of sum |x*w|)
+    and its plain version (the bf16 output within one rounding); its times
+    beside its bound (FLOPs at 989 TFLOP/s), the plain version's and the
+    present path's (cuDNN TF32 on float32 copies, plus the residual, relu
+    and cast).  Then the whole bf16 evaluator at the cell's widths, 128
+    rows, a launch at a time (:func:`expect_conv_layer`): the stem on the
+    float32 planes (4n+12 channels, padded), each tower layer, and the head
+    (policy, value and UBE channels) on the tiles the main path takes;
+    ``apply_folded``'s outputs must be that chain's bit for bit, in
+    2 blocks + 2 launches; device time through the kernel and through the
+    cuDNN path."""
+    import torch
+    import torch.nn.functional as F
+
+    from takzero_torch.models import network
+    from takzero_torch.ops import conv
+    from takzero_torch.ops.repr import input_channels
+
+    out = {}
+    b, c = 128, 256
+    for n, blocks in ((6, 16), (5, 20)):
+        gen = torch.Generator().manual_seed(n)
+        x = torch.randn(b, n, n, c, generator=gen).to(torch.bfloat16).to(dev)
+        res = torch.randn(b, n, n, c, generator=gen).to(torch.bfloat16).to(dev)
+        layer = conv._layer((torch.randn(c, c, 3, 3, generator=gen) / 48).to(dev),
+                            (torch.randn(c, generator=gen) * 0.1).to(dev))
+        raw = conv.ConvLayer(layer.weight, layer.bias, c, c, split=c)  # f32 out, unrelued
+        _, rel = expect_conv_layer(x, raw, None, f"{n}x{n} tower layer, float32 sum")
+        _, ulps = expect_conv_layer(x, layer, res, f"{n}x{n} tower layer")
+        flops, nbytes = 2.0 * b * n * n * c * c * 9, 3 * b * n * n * c * 2 + layer.weight.numel() * 2
+        xc, wc = x.permute(0, 3, 1, 2).contiguous(), conv.unpack_weight(layer.weight).contiguous()
+        rc = res.permute(0, 3, 1, 2).contiguous()
+
+        def library():
+            with network.conv_precision(torch.bfloat16):
+                return F.relu(rc.float() + network._conv2d(xc, wc, layer.bias, torch.bfloat16)).to(torch.bfloat16)
+
+        ms, how = device_ms(lambda: conv.conv3x3(x, layer, res))
+        row = dict(shape=[b, n, n, c, c], tile=list(conv.choose_tile(b * n * n, c)), kernel_ms=ms,
+                   call_ms=call_ms(lambda: conv.conv3x3(x, layer, res)),
+                   plain_ms=call_ms(lambda: conv.conv3x3_plain(x, layer, res), iters=20, warmup=3),
+                   library_ms=device_ms(library)[0], bound_ms=max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+                   bound_by="operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
+                   tflops=flops / ms / 1e9, f32_err_over_sum_abs_products=rel, bf16_err_in_roundings=ulps,
+                   timing={"kernel": how})
+        cfg = network.NetConfig(n=n, filters=c, blocks=blocks)
+        fw = network.fold_inference_params(cfg, network.init_network(cfg, 1).to(dev))
+        packed = fw["packed"]
+        planes = torch.randint(0, 2, (b, input_channels(n), n, n), generator=gen).float().to(dev)
+        core, stem_err = expect_conv_layer(planes, packed["stem"], None, f"{n}x{n} stem")
+        tower_err = 0.0
+        for i, (la, lb) in enumerate(packed["blocks"]):
+            y, e1 = expect_conv_layer(core, la, None, f"{n}x{n} block {i} a")
+            core, e2 = expect_conv_layer(y, lb, core, f"{n}x{n} block {i} b")
+            tower_err = max(tower_err, e1, e2)
+        (policy, heads), head_err = expect_conv_layer(core, packed["head"], None, f"{n}x{n} head")
+        chain = (policy, network._dense_head(heads[:, 0], fw["value"], True),
+                 network._dense_head(heads[:, 1], fw["ube"], False))
+        before = conv.conv3x3.launches
+        kernel_out = network.apply_folded(cfg, fw, planes)
+        launches = conv.conv3x3.launches - before
+        if launches != 2 * blocks + 2:
+            raise AssertionError(f"evaluator {n}x{n}: {launches} convolution launches, expected {2 * blocks + 2}")
+        for name, got, want in zip(("policy", "value", "ube"), kernel_out, chain):
+            if not torch.equal(got, want):
+                raise AssertionError(f"evaluator {n}x{n}: apply_folded's {name} is not the checked chain's")
+        with cudnn_folded_path():
+            cudnn_ms = device_ms(lambda: network.apply_folded(cfg, fw, planes), calls=5)[0]
+        row["evaluator"] = dict(
+            launches=launches, kernel_ms=device_ms(lambda: network.apply_folded(cfg, fw, planes), calls=5)[0],
+            cudnn_ms=cudnn_ms,
+            tiles={k: list(conv.choose_tile(b * n * n, packed[k].cout_pad)) for k in ("stem", "head")},
+            stem_err_in_roundings=stem_err, tower_err_in_roundings=tower_err,
+            head_f32_err_over_sum_abs_products=head_err)
+        log({"phase": f"conv kernel, {n}x{n}", "card": card_line(), **row})
+        out[f"{n}x{n}"] = row
+    return out
+
+
 def check_topk_8x8(gen, dev) -> dict:
     """3b: kernel A on rows too wide for shared memory, 8x8's f32[128, 65216]:
     masked logits of random 8x8 positions and the adversarial rows, with
@@ -805,7 +956,8 @@ def run_search_8x8(dev, gen) -> dict:
     tree, slot = search(tree, gumbel_noise(gen, (batch, children)), torch.zeros(batch, device=dev))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _expect_launches("8x8 search at 16x256", budget + 1, 1)
+    launches = _expect_launches("8x8 search at 16x256", budget + 1, 1,
+                                conv_per=(budget + 1) * _conv_per_evaluation(cfg))
     action = slot_action(tree, slot).to(torch.int64)
     if not bool(eng.legal_mask(envs).gather(1, action[:, None]).all()):
         raise AssertionError("8x8 search: an illegal action was chosen")
@@ -834,6 +986,7 @@ def check_small_reference(dev) -> None:
     from takzero_torch.config import NET_PRESETS, selfplay_preset
     from takzero_torch.models.agent import make_net_evaluate, new_agent
     from takzero_torch.models.network import _conv2d, conv_precision
+    from takzero_torch.ops import conv
     from takzero_torch.search.agents import dummy_evaluator
     from takzero_torch.selfplay import SelfplayEngine, make_draws
     from takzero_torch.tak.engine import engine
@@ -884,23 +1037,31 @@ def check_small_reference(dev) -> None:
             "max_abs_diff": max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want)),
         }
 
-    # One bf16 convolution at the flagship width against float64: the
-    # products of bf16 values are exact in TF32 and float32, so the card's
-    # error must stay at float32 summation level (a Winograd or FFT
-    # algorithm would not).
+    # One bf16 convolution at the flagship width against float64, through
+    # the evaluator's kernel (its head launch's float32 output: the sum
+    # before any rounding) and through cuDNN's TF32 (``_conv2d``, which the
+    # learner's modules still take): the products of bf16 values are exact,
+    # so the card's error must stay at float32 summation level (a Winograd
+    # or FFT algorithm would not).
     gen = torch.Generator().manual_seed(5)
     xc = torch.randn(32, 256, 6, 6, generator=gen).to(torch.bfloat16)
     wc = (torch.randn(256, 256, 3, 3, generator=gen) / 48).to(torch.bfloat16)
-    bias = torch.zeros(256)
+    layer = conv._layer(wc.to(dev), torch.zeros(256, device=dev), split=256)
+    before = conv.conv3x3.launches
+    kernel = conv.conv3x3(xc.to(dev).permute(0, 2, 3, 1).contiguous(), layer)[0].view(32, 256, 6, 6)
+    if conv.conv3x3.launches != before + 1:
+        raise AssertionError("the float64 check did not launch the convolution kernel")
     with conv_precision(torch.bfloat16):
-        got = _conv2d(xc.to(dev), wc.to(dev), bias.to(dev), torch.bfloat16).cpu().double()
+        cudnn = _conv2d(xc.to(dev), wc.to(dev), torch.zeros(256, device=dev), torch.bfloat16)
     ref = torch.nn.functional.conv2d(xc.double(), wc.double(), padding=1)
     scale = torch.nn.functional.conv2d(xc.double().abs(), wc.double().abs(), padding=1)
-    rel = float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
+    rel = {name: float(((got.cpu().double() - ref).abs() / scale.clamp(min=1e-30)).max())
+           for name, got in (("conv3x3_bf16_kernel", kernel), ("cudnn_tf32", cudnn))}
     report["conv_bf16_vs_float64"] = {"max_err_over_sum_abs_products": rel, "limit": 1e-5}
     log(report)
-    if rel > 1e-5:
-        raise AssertionError(f"bf16 convolution on the card: error {rel:.3g} of sum|x*w| > 1e-5")
+    for name, err in rel.items():
+        if err > 1e-5:
+            raise AssertionError(f"bf16 convolution on the card ({name}): error {err:.3g} of sum|x*w| > 1e-5")
 
 
 def run_main_path(dev) -> tuple[dict, object]:
@@ -915,12 +1076,14 @@ def run_main_path(dev) -> tuple[dict, object]:
     _zero_launch_counts()
     res = bench.run(cfg, device=dev)
     # Each simulation: one descent, one expansion top-k (kernel A), one
-    # SimHash (kernel B) and one backup, graph replays included.
-    launches = {**_launch_counts(), **_tree_launch_counts()}
+    # SimHash (kernel B), one backup and one evaluation of 2 blocks + 2
+    # convolution launches, graph replays included.
+    launches = {**_launch_counts(), **_tree_launch_counts(), **_conv_launch_counts()}
     expect = (cfg.budget + 1) * (cfg.moves + 1)  # the warm-up move included
     for name, count in launches.items():
-        if count != expect:
-            raise AssertionError(f"{name}: {count} launches on the main path, expected {expect}")
+        want = expect * (2 * cfg.blocks + 2 if name == "conv3x3" else 1)
+        if count != want:
+            raise AssertionError(f"{name}: {count} launches on the main path, expected {want}")
 
     eng = engine(6, half_komi=4)
     action = res.packed[:, 0].to(dev, torch.int64)
@@ -1256,27 +1419,50 @@ def _tree_launch_counts() -> dict:
     return {"tree_descend": tree.tree_descend.launches, "tree_backup": tree.tree_backup.launches}
 
 
+def _conv_launch_counts() -> dict:
+    """The evaluator's convolution kernel's counter."""
+    from takzero_torch.ops import conv
+
+    return {"conv3x3": conv.conv3x3.launches}
+
+
+def _conv_per_evaluation(cfg) -> int:
+    """The convolution kernel's launches in one evaluation of ``cfg``'s net:
+    the stem, two a block and the heads in bf16; none in float32, whose
+    folded path keeps ``_conv2d``."""
+    import torch
+
+    return 2 * cfg.blocks + 2 if cfg.compute_dtype == torch.bfloat16 else 0
+
+
 def _zero_launch_counts() -> None:
-    """Kernel A's, B's and the tree kernels' counters to 0."""
-    from takzero_torch.ops import simhash, topk, tree
+    """Kernel A's, B's, the tree kernels' and the convolution kernel's
+    counters to 0."""
+    from takzero_torch.ops import conv, simhash, topk, tree
 
     topk.exact_top_k_unsorted.launches = 0
     simhash.simhash_pack.launches = 0
     tree.tree_descend.launches = tree.tree_backup.launches = 0
+    conv.conv3x3.launches = 0
 
 
 def _expect_launches(what: str, per: int, count: int, b_per: int | None = None,
-                     tree_per: tuple[int, int] | None = None) -> dict:
+                     tree_per: tuple[int, int] | None = None, conv_per: int | None = None) -> dict:
     """Read the counters; kernel A must have launched ``per * count`` times
     and kernel B ``b_per * count`` (``b_per`` defaults to ``per``; 0 for a
     net without SimHash).  ``tree_per``: (descents, backups) per count, for
     a path whose searches the counts of the tree kernels are known for;
-    the returned counts then include theirs."""
+    ``conv_per``: the convolution kernel's launches per count (evaluations
+    times :func:`_conv_per_evaluation`).  The returned counts include the
+    kernels checked."""
     got = _launch_counts()
     want = {"exact_top_k_unsorted": per, "simhash_pack": per if b_per is None else b_per}
     if tree_per is not None:
         got.update(_tree_launch_counts())
         want.update(tree_descend=tree_per[0], tree_backup=tree_per[1])
+    if conv_per is not None:
+        got.update(_conv_launch_counts())
+        want["conv3x3"] = conv_per
     for name, n in got.items():
         if n != want[name] * count:
             raise AssertionError(f"{what}: {name} launched {n} times, expected {want[name]} x {count}")
@@ -1386,6 +1572,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
     eng = engine(cfg.n, half_komi=cfg.half_komi)
     per_move = budget + 1
     b_per = per_move if cfg.novelty == "simhash" else 0
+    conv_per = per_move * _conv_per_evaluation(cfg)  # an evaluation a simulation
     hashed = cfg.novelty in ("simhash", "lcghash")
     b_in_phase = 0  # kernel B's launches over the whole phase
 
@@ -1407,7 +1594,8 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         zero_counts()
         sp = selfplay.main(common + search + ["--seed", "1", "--max-games", str(games)])
         del sp["agent"]
-        sp_launches = _expect_launches("selfplay driver", per_move, sp["moves"], b_per, (per_move, per_move))
+        sp_launches = _expect_launches("selfplay driver", per_move, sp["moves"], b_per, (per_move, per_move),
+                                       conv_per)
         # 3. Ten learner steps on the selfplay targets.
         lr = learn.main(learner + ["--seed", "2", "--pretrain-steps", "0", "--max-steps", "10"])
         if lr["steps"] != 10:
@@ -1415,7 +1603,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         # 4. Two more moves: one reload, and the seen-set of the whole log.
         zero_counts()
         sp2 = selfplay.main(common + search + ["--seed", "3", "--max-steps", "2"])
-        _expect_launches("selfplay driver, 2 moves", per_move, 2, b_per, (per_move, per_move))
+        _expect_launches("selfplay driver, 2 moves", per_move, 2, b_per, (per_move, per_move), conv_per)
         if sp2["reloads"] != 1:
             raise AssertionError(f"the selfplay poller reloaded {sp2['reloads']} times, expected 1")
         if hashed:
@@ -1445,7 +1633,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         # 5. Two reanalyze steps on the exploded replays.
         zero_counts()
         re = reanalyze.main(common + search + ["--seed", "4", "--min-positions", str(batch), "--max-steps", "2"])
-        re_launches = _expect_launches("reanalyze", per_move, re["steps"], b_per, (per_move, per_move))
+        re_launches = _expect_launches("reanalyze", per_move, re["steps"], b_per, (per_move, per_move), conv_per)
         if re["steps"] != 2 or re["targets"] != 2 * batch:
             raise AssertionError(f"reanalyze: {re['steps']} steps and {re['targets']} targets")
         # 6. One train step on reanalyze targets (the learner mixes them in
@@ -1679,8 +1867,8 @@ def run_tei(engine_, tps: str) -> dict:
     seconds = time.perf_counter() - t0
     chunks = len(infos1) + len(infos2) + len(infos3)
     # A chunk: one plain simulation (a descent, a backup) and the serve
-    # chunk, whose wavefront has its own loops.
-    launches = _expect_launches("TEI", 2, chunks, tree_per=(1, 1))
+    # chunk, whose wavefront has its own loops; an evaluation each.
+    launches = _expect_launches("TEI", 2, chunks, tree_per=(1, 1), conv_per=2 * _conv_per_evaluation(engine_.cfg))
     out = {"phase": "serve: TEI session", "net": "net6_simhash (16x256 bf16, SimHash 2^32)", "card": card_line(),
            "chunks": chunks, "sims_per_chunk": SIM_CHUNK, "bestmoves": [best1, best2, best3],
            "reused_root_visits": reused, "child_visits_before": child_visits,
@@ -1726,11 +1914,12 @@ def run_analysis(engine_, tps: str, dev) -> dict:
     tree = run(tree)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {**_launch_counts(), **_tree_launch_counts()}
+    launches = {**_launch_counts(), **_tree_launch_counts(), **_conv_launch_counts()}
     # One simulation, then simulate_batch: a descent a simulation, and a
-    # backup of its known stops and one of its leaves a batched one.
+    # backup of its known stops and one of its leaves a batched one; two
+    # evaluations.
     want = {"exact_top_k_unsorted": analysis.SIM_CHUNK, "simhash_pack": 2, "tree_descend": analysis.SIM_CHUNK,
-            "tree_backup": 2 * analysis.SIM_CHUNK - 1}
+            "tree_backup": 2 * analysis.SIM_CHUNK - 1, "conv3x3": 2 * _conv_per_evaluation(cfg)}
     if launches != want:
         raise AssertionError(f"analysis chunk: launches {launches}, expected {want}")
     if int(tree.root_visit[0]) != analysis.SIM_CHUNK:
@@ -1784,7 +1973,8 @@ def run_evaluation(dev, games: int = 32, sampled: int = 4, budget: int = 8, max_
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     half_moves = sum(r.half_moves for *_, r in results)
-    launches = _expect_launches("evaluation driver", budget + 1, half_moves, tree_per=(budget + 1, budget + 1))
+    launches = _expect_launches("evaluation driver", budget + 1, half_moves, tree_per=(budget + 1, budget + 1),
+                                conv_per=(budget + 1) * _conv_per_evaluation(cfg))
     lines = [x for x in buf.getvalue().splitlines() if " vs. " in x]
     if len(lines) != 2:
         raise AssertionError(f"evaluation driver: {len(lines)} match lines, expected 2")
@@ -1827,7 +2017,8 @@ def run_puzzles(engine_, dev, sampled: int = 8, budget: int = 24) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     batches = sum(math.ceil(n / puzzle.BATCH_SIZE) for n in PUZZLE_COUNTS.values())
-    launches = _expect_launches("puzzle driver", budget + 1, batches, tree_per=(budget + 1, budget + 1))
+    launches = _expect_launches("puzzle driver", budget + 1, batches, tree_per=(budget + 1, budget + 1),
+                                conv_per=(budget + 1) * _conv_per_evaluation(engine_.cfg))
     got = [(r.category, r.attempted) for r in results]
     if got != [(c, n) for (c, _), n in PUZZLE_COUNTS.items()]:
         raise AssertionError(f"puzzle driver attempted {got}, the database holds {list(PUZZLE_COUNTS.values())}")
@@ -2179,18 +2370,18 @@ def run_lcghash_drivers(dev, batch: int = 128, sampled: int = 8, budget: int = 2
         _zero_launch_counts()
         learn.main(learner + ["--seed", "0", "--pretrain-targets", str(10 * batch), "--pretrain-steps", "10",
                               "--max-steps", "0"])
-        _expect_launches("net4_lcghash learner pre-training", 0, 1)
+        _expect_launches("net4_lcghash learner pre-training", 0, 1, conv_per=0)
         log_after_pre = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)[0].size
         sp = selfplay.main(common + search + ["--seed", "1", "--max-steps", "4"])
-        sp_launches = _expect_launches("net4_lcghash selfplay", per, 4, 0)
+        sp_launches = _expect_launches("net4_lcghash selfplay", per, 4, 0, conv_per=per * _conv_per_evaluation(cfg))
         eng = engine(cfg.n, half_komi=cfg.half_komi)
         lines = [t.to_line() for t in random_pretraining_targets(eng, 4 * batch, np.random.default_rng(3), device=dev)]
         Path(d, co.TARGETS_SELFPLAY).write_text("\n".join(lines) + "\n", encoding="utf-8")
         _zero_launch_counts()
         lr = learn.main(learner + ["--seed", "2", "--pretrain-steps", "0", "--max-steps", "4"])
-        _expect_launches("net4_lcghash learner", 0, 1)
+        _expect_launches("net4_lcghash learner", 0, 1, conv_per=0)
         sp2 = selfplay.main(common + search + ["--seed", "3", "--max-steps", "2"])
-        _expect_launches("net4_lcghash selfplay, 2 moves", per, 2, 0)
+        _expect_launches("net4_lcghash selfplay, 2 moves", per, 2, 0, conv_per=per * _conv_per_evaluation(cfg))
         step14 = ckpt.read_checkpoint(f"{d}/model_0000014.ckpt")["hash_bits"].to(dev)
         idx, _ = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)
         # Distinct indices that rebuild the learner's seen-set: the log
@@ -2286,13 +2477,14 @@ def run_ensemble_and_net5(dev, batch: int = 128, sampled: int = 8, budget: int =
                                           "--max-steps", "0"])
             finally:
                 logging.getLogger("learn").removeHandler(handler)
-            _expect_launches(f"{net} learner", 0, 1)
+            _expect_launches(f"{net} learner", 0, 1, conv_per=0)
             warned = any("NOT trained" in w for w in warnings)
             if warned != (cfg.novelty == "ensemble"):
                 raise AssertionError(f"{net}: ensemble warning {'given' if warned else 'missing'}: {warnings}")
             sp = selfplay.main(common + ["--batch", str(batch), "--sampled", str(sampled), "--budget", str(budget),
                                          "--seed", "1", "--max-steps", "1"])
-            launches = _expect_launches(f"{net} selfplay move", per, 1, 0)
+            # net4_ensemble's evaluations read the core through with_core.
+            launches = _expect_launches(f"{net} selfplay move", per, 1, 0, conv_per=per * _conv_per_evaluation(cfg))
             if sp["reloads"] != 1:
                 raise AssertionError(f"{net}: the selfplay poller reloaded {sp['reloads']} times, expected 1")
             eng = engine(cfg.n, half_komi=cfg.half_komi)
@@ -2306,7 +2498,7 @@ def run_ensemble_and_net5(dev, batch: int = 128, sampled: int = 8, budget: int =
                 _zero_launch_counts()
                 lr = learn.main(common + ["--batch-size", str(batch), "--no-wait", "--seed", "2",
                                           "--pretrain-steps", "0", "--max-steps", "2"])
-                _expect_launches("net5 learner", 0, 1)
+                _expect_launches("net5 learner", 0, 1, conv_per=0)
                 rows = [json.loads(x) for x in Path(d, "metrics.jsonl").read_text(encoding="utf-8").splitlines()]
                 if lr["steps"] != 2 or not all(math.isfinite(r[k]) for r in rows for k in r if k != "step"):
                     raise AssertionError(f"net5 learner: {lr['steps']} steps, metrics {rows}")
@@ -2638,6 +2830,7 @@ def run_visualize_search(dev, out, visits: int = 200) -> dict:
     64 and 944, and A timed at k=64 beside ``torch.topk``."""
     import torch
 
+    from takzero_torch.config import NET_PRESETS
     from takzero_torch.drivers import visualize_search
     from takzero_torch.eee.harness import random_draws
     from takzero_torch.models.agent import make_net_evaluate, new_agent
@@ -2669,7 +2862,8 @@ def run_visualize_search(dev, out, visits: int = 200) -> dict:
                                        "--out-dir", str(out), "--device", str(dev)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _expect_launches("visualize_search", 1, 2 * visits, 0)
+    launches = _expect_launches("visualize_search", 1, 2 * visits, 0,
+                                conv_per=_conv_per_evaluation(NET_PRESETS["net4_rnd"]))
     for path, host in drawn:
         if not path.stat().st_size or int(host["root_visit"]) != visits:
             raise AssertionError(f"visualize_search: {path} ({path.stat().st_size} bytes), root visits "
@@ -2940,7 +3134,8 @@ def run_reuse_ab(dev, out_dir) -> dict:
                                  "--sampled", "8", "--max-moves", "4", "--device", str(dev)])
     torch.cuda.synchronize()
     half = summary["half_moves"]
-    launches = _expect_launches("reuse_ab", REUSE_AB_BUDGET + 1, half)
+    launches = _expect_launches("reuse_ab", REUSE_AB_BUDGET + 1, half,
+                                conv_per=(REUSE_AB_BUDGET + 1) * _conv_per_evaluation(NET_PRESETS["net6_simhash"]))
     # 4 moves a side: no 6x6 game can end, so every direction runs 8
     # half-moves and no game is scored.
     if half != 16 or not 0 <= summary["games"] <= 128:
@@ -3116,7 +3311,8 @@ def _rank_selfplay(driver_main, argv, float32: bool = True) -> dict:
     finally:
         multihost.all_gather_rows = gather
     result.pop("agent")
-    return {"result": result, "launches": _launch_counts(), "rank": multihost.rank(), "gather_ms": gather_ms,
+    return {"result": result, "launches": {**_launch_counts(), **_conv_launch_counts()}, "rank": multihost.rank(),
+            "gather_ms": gather_ms,
             "calls": [(k, x.cpu(), arg if k == "A" else arg.cpu()) for k, x, arg, _ in calls]}
 
 
@@ -3206,7 +3402,8 @@ def _rank_drivers(argv) -> dict:
         torch.cuda.synchronize()
         if isinstance(res, dict):
             res.pop("agent", None)
-        out[name] = {"result": res, "launches": _launch_counts(), "seconds": time.perf_counter() - t0}
+        out[name] = {"result": res, "launches": {**_launch_counts(), **_conv_launch_counts()},
+                     "seconds": time.perf_counter() - t0}
     return out
 
 
@@ -3379,6 +3576,7 @@ def run_multi_device(dev) -> dict:
             t0 = time.perf_counter()
             with float32_presets(*(F32_NETS if float32 else ())):
                 one = selfplay.main(["--directory", str(d / f"s1_{dtype}"), *sp, "--device", str(dev)])
+                conv_per = _conv_per_evaluation(NET_PRESETS["net4_simhash"])  # 0 in float32
             t1 = time.perf_counter()
             two = _launcher("selfplay", ["--directory", str(d / f"s2_{dtype}"), *sp, "--device", shared],
                             functools.partial(_rank_selfplay, float32=float32))
@@ -3386,9 +3584,10 @@ def run_multi_device(dev) -> dict:
             moves = two[0]["result"]["moves"]
             for o in two:
                 per = {k: v / moves for k, v in o["launches"].items()}
-                if per != {"exact_top_k_unsorted": SP16["budget"] + 1, "simhash_pack": SP16["budget"] + 1}:
+                evals = SP16["budget"] + 1  # at the global batch's shape, each with its launches
+                if per != {"exact_top_k_unsorted": evals, "simhash_pack": evals, "conv3x3": evals * conv_per}:
                     raise AssertionError(f"selfplay {dtype} rank {o['rank']}: {per} launches a move, "
-                                         "expected budget + 1")
+                                         f"expected budget + 1 and {conv_per} convolutions an evaluation")
             replays = (d / f"s2_{dtype}" / co.REPLAYS).read_text().splitlines()
             if len(replays) != two[0]["result"]["replays"] or two[1]["result"]["replays"] != len(replays):
                 raise AssertionError(f"selfplay {dtype}: {len(replays)} replay lines, the ranks counted "
@@ -3472,11 +3671,16 @@ def run_multi_device(dev) -> dict:
         per_rank = {"reanalyze": 2, "reanalyze_f32": 2, "evaluation": half_moves, "puzzle": 1,
                     "coscheduled": ranks[0]["coscheduled"]["result"]["moves"]}
         for name, count in per_rank.items():
+            # Only reanalyze runs in bf16, the rest in float32 (no convolution kernel).
+            conv_per = _conv_per_evaluation(cfg4) if name == "reanalyze" else 0
             for o in ranks:
                 got = o[name]["launches"]["exact_top_k_unsorted"]
                 budget = 9 if name == "evaluation" else 25
                 if got != budget * count:
                     raise AssertionError(f"{name} rank: kernel A {got} launches, expected {budget} x {count}")
+                if o[name]["launches"]["conv3x3"] != budget * count * conv_per:
+                    raise AssertionError(f"{name} rank: {o[name]['launches']['conv3x3']} convolution launches, "
+                                         f"expected {budget} x {count} x {conv_per}")
         for name, dtype in (("r", "bf16"), ("f", "float32")):
             a, b = ((d / f"{name}{w}" / co.TARGETS_REANALYZE).read_text().splitlines() for w in (1, 2))
             _expect_equal_lines(f"reanalyze {dtype} targets", a, b)
@@ -3983,6 +4187,7 @@ def main() -> int:
     topk_out = check_topk(eng, envs, gen, dev)
     simhash_out = check_simhash(eng, envs, gen, dev)
     tree_out = check_tree_kernels(dev)
+    conv_out = check_conv_kernel(dev)
     if kernels_only:
         log({"phase": "done", "seconds": time.perf_counter() - t_start, "kernels_only": True})
         return 0
@@ -4106,6 +4311,31 @@ def main() -> int:
             "puzzle_launches": serve["puzzles"]["launches"][name],
             "at_6x6": tree_out[f"{walk}_6x6"], "at_5x5": tree_out[f"{walk}_5x5"],
         })
+    # The convolution kernel: its launches on the paths that check them,
+    # read from the counters in this run, and phase 4c.
+    name = "conv3x3"
+    kernels.append({
+        "name": name, "route": "cuda", "source": "takzero_torch/csrc/conv.cu",
+        "replaces": "none (XLA's convolutions, takzero_tpu/models/network.py apply_folded)", "checked": True,
+        "launches": launches[name], "search_8x8_launches": search_8x8["launches"][name],
+        "selfplay_driver_launches": loop["launches"]["selfplay_driver"][name],
+        "reanalyze_launches": loop["launches"]["reanalyze"][name],
+        "rnd_loop_selfplay_driver_launches": rnd_loop["launches"]["selfplay_driver"][name],
+        "rnd_loop_reanalyze_launches": rnd_loop["launches"]["reanalyze"][name],
+        "tei_launches": serve["tei"]["launches"][name], "analysis_launches": serve["analysis"]["launches"][name],
+        "evaluation_launches": serve["evaluation"]["launches"][name],
+        "puzzle_launches": serve["puzzles"]["launches"][name],
+        "lcghash_launches_per_move": lcg["launches_per_move"][name],
+        "ensemble_launches_per_move": ens_net5["net4_ensemble"]["launches_per_move"][name],
+        "net5_launches_per_move": ens_net5["net5"]["launches_per_move"][name],
+        "visualize_search_launches_per_simulation": eee["visualize_search"]["launches"][name] / sims,
+        "reuse_ab_launches_per_half_move": tools["reuse_ab"]["launches_per_half_move"][name],
+        "launches_per_rank": {
+            "selfplay": [c[name] for c in multi["selfplay"]["launches_per_rank"]],
+            **{k: [c[name] for c in v] for k, v in multi["drivers"]["launches_per_rank"].items()},
+        },
+        "at_6x6": conv_out["6x6"], "at_5x5": conv_out["5x5"],
+    })
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(card_line())
     log({"kernels": kernels})

@@ -34,7 +34,9 @@ them in float32 (JAX's ``preferred_element_type=float32``), adds the f32
 bias (and the residual) to that float32 result, and the activation is cast
 back to ``compute_dtype`` where JAX casts: one rounding per layer, as in
 the JAX package.  Unlike the modules, it does not round a convolution's
-result.
+result.  In bf16 on a CUDA card it runs each convolution as one launch of
+``ops/conv.py``'s kernel, bias, residual and relu in its epilogue, with the
+activations NHWC from the stem to the core (:func:`apply_packed`).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import conv
 from ..ops.repr import input_channels, input_size
 from ..parallel import multihost
 from ..tak.moves import action_space
@@ -390,16 +393,36 @@ def _fold(convbn: ConvBN, dtype):
 @torch.no_grad()
 def fold_inference_params(cfg: NetConfig, net: TakNet) -> dict:
     """Fold the core's ConvBN pairs into (kernel in compute_dtype, f32 bias);
-    heads are copied (they have biases)."""
+    heads are copied (they have biases).  A bf16 network on a CUDA card also
+    gets its convolutions packed for the kernel (``packed``, see
+    :func:`_packed`)."""
     dt = cfg.compute_dtype
     head = lambda h: (h.conv.weight, h.conv.bias, h.dense.weight, h.dense.bias)  # noqa: E731
-    return {
+    fw = {
         "stem": _fold(net.core.stem, dt),
         "blocks": [(_fold(b.a, dt), _fold(b.b, dt)) for b in net.core.blocks],
         "policy": (net.policy.weight, net.policy.bias),
         "value": head(net.value),
         "ube": head(net.ube),
     }
+    if _takes_kernel(dt, fw["stem"][0]):
+        _packed(fw)
+    return fw
+
+
+def _takes_kernel(dtype, x: torch.Tensor) -> bool:
+    """Whether the folded path runs its convolutions through ``ops/conv.py``'s
+    kernel: bf16 on a CUDA card.  Float32 and the CPU keep :func:`_conv2d`."""
+    return dtype == torch.bfloat16 and x.is_cuda
+
+
+def _packed(fw: dict) -> dict:
+    """``fw["packed"]``: the kernel's packed layers, made once per fold and
+    kept, so that CUDA graphs captured around the evaluator see the same
+    weight tensors on every replay (a refold makes new ones)."""
+    if "packed" not in fw:
+        fw["packed"] = conv.pack_folded(fw)
+    return fw["packed"]
 
 
 def _conv2d(x, kernel, bias, dtype):
@@ -431,14 +454,39 @@ def conv_precision(dtype):
         yield
 
 
+def _dense_head(h: torch.Tensor, w, tanh: bool) -> torch.Tensor:
+    """A scalar head's dense layer in float32 on its relued map h f32[B, n n]."""
+    _, _, dk, db = w
+    out = (h @ dk.float().t() + db.float())[:, 0]
+    return torch.tanh(out) if tanh else out
+
+
+def apply_packed(cfg: NetConfig, fw: dict, planes: torch.Tensor, with_core: bool = False):
+    """:func:`apply_folded` through ``ops/conv.py``: one ``conv3x3`` a layer,
+    the activations NHWC bf16 from the stem to the core, the value and UBE
+    maps from the policy launch.  The kernel on a CUDA card; on CPU tensors
+    ``conv3x3`` is its plain version.  ``with_core``'s core is an NCHW view
+    of the NHWC tower output."""
+    packed = _packed(fw)
+    x = conv.conv3x3(planes.contiguous(), packed["stem"])
+    for a, b in packed["blocks"]:
+        x = conv.conv3x3(conv.conv3x3(x, a), b, residual=x)
+    policy, heads = conv.conv3x3(x, packed["head"])
+    out = (policy, _dense_head(heads[:, 0], fw["value"], True), _dense_head(heads[:, 1], fw["ube"], False))
+    return out + (x[..., : cfg.filters].permute(0, 3, 1, 2),) if with_core else out
+
+
 @torch.no_grad()
 def apply_folded(cfg: NetConfig, fw: dict, planes: torch.Tensor, with_core: bool = False):
     """Inference on folded weights: (policy f32[B,A], value f32[B], ube f32[B]).
 
     ``with_core`` appends the residual tower's output (``compute_dtype``
     [B, F, N, N]) so that extra heads (the ensemble) reuse this forward
-    instead of running a second tower."""
+    instead of running a second tower.  In bf16 on a CUDA card the
+    convolutions run as ``ops/conv.py``'s kernel (:func:`apply_packed`)."""
     dt = cfg.compute_dtype
+    if _takes_kernel(dt, planes):
+        return apply_packed(cfg, fw, planes, with_core)
     with conv_precision(dt):
         x = F.relu(_conv2d(planes, *fw["stem"], dt)).to(dt)
         for (k1, b1), (k2, b2) in fw["blocks"]:
@@ -449,10 +497,7 @@ def apply_folded(cfg: NetConfig, fw: dict, planes: torch.Tensor, with_core: bool
         policy = _conv2d(core, *fw["policy"], dt).flatten(1)
 
         def scalar_head(w, tanh):
-            ck, cb, dk, db = w
-            h = F.relu(_conv2d(core, ck, cb, dt)).flatten(1)
-            out = (h @ dk.float().t() + db.float())[:, 0]
-            return torch.tanh(out) if tanh else out
+            return _dense_head(F.relu(_conv2d(core, w[0], w[1], dt)).flatten(1), w, tanh)
 
         out = (policy, scalar_head(fw["value"], True), scalar_head(fw["ube"], False))
         return out + (core,) if with_core else out

@@ -34,6 +34,7 @@ KERNELS = {
     "simhash": ("simhash.cu", {"simhash_launch": [_P, _P, _P, _I, _I, _I, _P]}),
     "tree": ("tree.cu", {"tree_descend_launch": [_P] * 26 + [_I] * 6 + [_P],
                          "tree_backup_launch": [_P] * 22 + [_I] * 6 + [_P]}),
+    "conv": ("conv.cu", {"conv3x3_launch": [_P] * 6 + [_I] * 10 + [_P]}),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

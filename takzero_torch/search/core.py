@@ -42,6 +42,7 @@ from typing import Callable
 
 import torch
 
+from ..ops import conv as _conv
 from ..ops import simhash as _simhash
 from ..ops import topk as _topk
 from ..ops import tree as _tree
@@ -601,11 +602,11 @@ def _eager(phase: str, fn: Callable):
 
 
 def _launch_counts() -> tuple:
-    """The host counters of kernels A and B and of the descent and backup
-    kernels, on the wrappers their modules hold now (a test may hold a
-    counting one in a wrapper's place)."""
+    """The host counters of kernels A and B, of the descent and backup
+    kernels and of the evaluator's convolution kernel, on the wrappers their
+    modules hold now (a test may hold a counting one in a wrapper's place)."""
     return (_topk.exact_top_k_unsorted.launches, _simhash.simhash_pack.launches,
-            _tree.tree_descend.launches, _tree.tree_backup.launches)
+            _tree.tree_descend.launches, _tree.tree_backup.launches, _conv.conv3x3.launches)
 
 
 def _add_launches(added: tuple) -> None:
@@ -613,6 +614,7 @@ def _add_launches(added: tuple) -> None:
     _simhash.simhash_pack.launches += added[1]
     _tree.tree_descend.launches += added[2]
     _tree.tree_backup.launches += added[3]
+    _conv.conv3x3.launches += added[4]
 
 
 def _captured(fn: Callable, pool, stream: torch.cuda.Stream):

@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from takzero_torch.ops import simhash, topk
+from takzero_torch.ops.repr import input_channels
+from takzero_torch.tak.moves import action_space
+
+from takzero_torch.ops import conv, simhash, topk
 
 pytestmark = pytest.mark.cuda
 
@@ -375,8 +378,10 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
     2^20 seen-set, or the MLP RND; or the simple evaluator, which runs
     eagerly between the graphs).  The counters of kernels A and B and of
     the two tree kernels read one launch a simulation (B's with the SimHash
-    net); the search engages 1 eager, 1 captured and budget - 1 replayed
-    simulations; and its graphs leave no memory allocated when it returns."""
+    net), the convolution kernel's 2 blocks + 2 (with the net, whose kernel
+    launches are inside the captured evaluator); the search engages 1
+    eager, 1 captured and budget - 1 replayed simulations; and its graphs
+    leave no memory allocated when it returns."""
     import contextlib
 
     from test_torch_lanewise import clone
@@ -425,8 +430,9 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
     del tree, slot
     assert torch.cuda.memory_allocated(cuda) == level
     graphed = run()
-    assert launches == [budget + 1, budget + 1 if novelty == "simhash" and evaluator == "net" else 0,
-                        budget + 1, budget + 1]
+    net = evaluator == "net"  # whose convolutions are the kernel's, 2 blocks + 2 an evaluation
+    assert launches == [budget + 1, budget + 1 if novelty == "simhash" and net else 0,
+                        budget + 1, budget + 1, (2 * cfg.blocks + 2) * (budget + 1) if net else 0]
     assert middles == {"eager": 1, "captured": 1, "replayed": budget - 1}
 
     checked = []
@@ -497,3 +503,117 @@ def test_a_search_scope_refuses_a_simulation_unlike_its_graphs(cuda):
 def _on_cpu(tree):
     return tree._replace(**{f: getattr(tree, f).cpu() for f in tree._fields if f != "node_env"},
                          node_env=tree.node_env.map(lambda x: x.cpu()))
+
+
+def _conv_layer(gen, cin, cout, dev, split=None):
+    w = torch.randn(cout, cin, 3, 3, generator=gen) / (3 * cin ** 0.5)
+    layer = conv._layer(w, torch.randn(cout, generator=gen) * 0.1, split=split)
+    return conv.ConvLayer(layer.weight.to(dev), layer.bias.to(dev), layer.cin, layer.cout, layer.split)
+
+
+def _float64_conv(x_nchw: torch.Tensor, layer) -> tuple:
+    """(the layer's float64 convolution plus bias, sum |x * w|) of NCHW x."""
+    w = conv.unpack_weight(layer.weight).double()
+    x = torch.nn.functional.pad(x_nchw.double(), (0, 0, 0, 0, 0, w.shape[1] - x_nchw.shape[1]))
+    acc = torch.nn.functional.conv2d(x, w, padding=1) + layer.bias.double()[None, :, None, None]
+    return acc, torch.nn.functional.conv2d(x.abs(), w.abs(), padding=1)
+
+
+@pytest.mark.parametrize("b,n,c", [
+    (128, 6, 256), (128, 5, 256),  # the selfplay cells' towers: 128 x 128 and 64 x 128 tiles
+    (1, 6, 256), (2, 6, 256),  # serve's small batches
+    (7, 6, 256),  # a ragged batch: the last row tile is partly past M
+    (128, 4, 64),  # 4x4 at 64 filters: 64 x 64 tiles
+    (128, 8, 256),  # 8x8
+    (64, 6, 256),  # a world-2 rank's rows
+])
+def test_conv_kernel_matches_plain_and_float64(cuda, b, n, c):
+    """A tower layer with its residual, on the tile the launch takes: the
+    float32 sum (the head launch's unrounded output) within 1e-5 of
+    sum |x * w| of float64 and the same on a second launch, and the bf16
+    output within one rounding of the plain version (both sum exact bf16
+    products in float32, in other orders); the stem and the head (policy
+    and the two 1x1 maps) against the plain version."""
+    gen = torch.Generator().manual_seed(b * n + c)
+    x = torch.randn(b, n, n, c, generator=gen).to(torch.bfloat16).to(cuda)
+    res = torch.randn(b, n, n, c, generator=gen).to(torch.bfloat16).to(cuda)
+    layer = _conv_layer(gen, c, c, cuda)
+    raw = conv.ConvLayer(layer.weight, layer.bias, c, c, split=c)  # f32 out, no relu
+    want, scale = _float64_conv(x.permute(0, 3, 1, 2), layer)
+    plain = conv.conv3x3_plain(x, layer, res).float()
+    bound = (scale + res.permute(0, 3, 1, 2).double().abs()).permute(0, 2, 3, 1).float()
+    before = conv.conv3x3.launches
+    got = conv.conv3x3(x, layer, res).float()
+    acc, _ = conv.conv3x3(x, raw)
+    again, _ = conv.conv3x3(x, raw)
+    torch.cuda.synchronize()
+    assert conv.conv3x3.launches == before + 3
+    assert torch.equal(acc, again)  # no atomics: the same sums on every launch
+    err = (acc.view(b, c, n, n).double() - want).abs() / scale.clamp(min=1e-30)
+    assert float(err.max()) <= 1e-5
+    ulp = torch.maximum(plain.abs(), got.abs()) * 2.0 ** -7 + 2e-5 * bound
+    assert bool(((got - plain).abs() <= ulp).all())
+    planes = torch.randint(0, 2, (b, input_channels(n), n, n), generator=gen).float().to(cuda)
+    stem = _conv_layer(gen, input_channels(n), c, cuda)
+    core = conv.conv3x3(planes, stem)
+    want_core = conv.conv3x3_plain(planes, stem).float()
+    assert bool(((core.float() - want_core).abs() <= want_core.abs() * 2.0 ** -7 + 1e-4).all())
+    a = action_space(n).num_channels
+    head = _conv_layer(gen, c, a + 2, cuda, split=a)
+    for got, want in zip(conv.conv3x3(core, head), conv.conv3x3_plain(core, head)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,filters", [(6, 256), (5, 64), (3, 16)])
+def test_bf16_apply_folded_card_equals_cpu(cuda, n, filters):
+    """The whole bf16 folded path on the card (the kernel, 2 blocks + 2
+    launches) against the CPU's present path, bit for bit on a fold of
+    small integers (every float32 sum exact in any order); the value within
+    one float32 rounding (tanh is another implementation on the card)."""
+    from test_torch_conv import _integer_fold, _ints
+
+    from takzero_torch.models import network
+
+    cfg = network.NetConfig(n=n, filters=filters, blocks=2)
+    gen = torch.Generator().manual_seed(n)
+    fw = _integer_fold(cfg, gen)
+    planes = _ints(gen, (9, input_channels(n), n, n), 0, 2)
+    want = network.apply_folded(cfg, fw, planes, with_core=True)
+    fw_card = {k: v for k, v in fw.items() if k != "packed"}
+    fw_card = {k: (tuple(t.to(cuda) for t in v) if isinstance(v, tuple) else
+                   [tuple(tuple(t.to(cuda) for t in conv_) for conv_ in pair) for pair in v])
+               for k, v in fw_card.items()}
+    before = conv.conv3x3.launches
+    got = network.apply_folded(cfg, fw_card, planes.to(cuda), with_core=True)
+    torch.cuda.synchronize()
+    assert conv.conv3x3.launches == before + 2 * cfg.blocks + 2
+    for g, w, what in zip(got, want, ("policy", "value", "ube", "core")):
+        if what == "value":
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(g.cpu(), w), what
+
+
+@pytest.mark.parametrize("net,launches", [("net6_simhash", 34), ("net5", 42)])
+def test_evaluator_launches_the_kernel_per_convolution(cuda, net, launches):
+    """``make_net_evaluate`` at the selfplay cells' widths and 128 rows:
+    one kernel launch a convolution, ``2 blocks + 2`` an evaluation."""
+    from takzero_torch.config import NET_PRESETS
+    from takzero_torch.models.agent import make_net_evaluate, new_agent
+    from takzero_torch.search.openings import make_new_opening
+    from takzero_torch.tak import engine
+
+    cfg = NET_PRESETS[net]
+    eng = engine(cfg.n, half_komi=cfg.half_komi)
+    agent = new_agent(cfg, seed=0, device=cuda)
+    assert "packed" in agent["folded"]
+    gen = torch.Generator().manual_seed(0)
+    envs = make_new_opening(eng)(torch.randint(0, 8, (128,), generator=gen).to(cuda),
+                                 torch.randint(0, 2, (128,), generator=gen).to(cuda))
+    evaluate = make_net_evaluate(cfg, eng, device=cuda)
+    before = conv.conv3x3.launches
+    logits, value, variance = evaluate(agent, envs)
+    torch.cuda.synchronize()
+    assert conv.conv3x3.launches - before == launches
+    assert logits.shape == (128, cfg.num_actions) and bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(value).all()) and bool(torch.isfinite(variance).all())
