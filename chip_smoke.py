@@ -3,7 +3,12 @@
     python3 chip_smoke.py [--kernels-only]
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
-It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
+It imports nothing of JAX or of ``takzero_tpu``.  Launches are read from
+the port's launch counters (``takzero_torch/ops/_build.py``); a phase
+that searches on the card expects :func:`per_simulation` of its net a
+simulation: kernel A, the descent and the backup once, kernel B once on
+a SimHash net, the convolution kernel 2 blocks + 2 in bf16.  Phases, in
+order:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions;
@@ -54,7 +59,8 @@ It imports nothing of JAX or of ``takzero_tpu``.  Phases, in order:
    ``tests/test_torch_bigboards.py`` on the card against the CPU (trees
    equal, floats within 1e-4), then one search at 16x256 bf16 with SimHash
    over 2^32 bits (128 games, k=8, budget 24, C=256): actions legal, the
-   root-visit invariant, both kernels budget+1 launches;
+   root-visit invariant, every kernel's launches those of budget+1
+   simulations;
 5. a small reference check: the 3x3 move program (dummy evaluator), the
    small network in float32 and in bf16 on the card against the same on
    the CPU, and one bf16 convolution at the flagship width against
@@ -356,6 +362,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from takzero_torch.ops._build import launch_counts, zero_launches
+
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory bandwidth,
 # float32 outside the tensor cores, and TF32 and bf16 in them.
 HBM_BYTES_PER_S = 3.35e12
@@ -363,6 +371,9 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 495e12  # tensor cores, dense
 BF16_FLOPS = 989e12  # tensor cores, dense
 NEG = -3.0e38
+# Kernels A and B: the counters the phases written before the tree and
+# convolution kernels compare.
+AB = ("exact_top_k_unsorted", "simhash_pack")
 
 
 def float32_without_tf32() -> None:
@@ -834,9 +845,9 @@ def check_conv_kernel(dev) -> dict:
         (policy, heads), head_err = expect_conv_layer(core, packed["head"], None, f"{n}x{n} head")
         chain = (policy, network._dense_head(heads[:, 0], fw["value"], True),
                  network._dense_head(heads[:, 1], fw["ube"], False))
-        before = conv.conv3x3.launches
+        before = launch_counts()["conv3x3"]
         kernel_out = network.apply_folded(cfg, fw, planes)
-        launches = conv.conv3x3.launches - before
+        launches = launch_counts()["conv3x3"] - before
         if launches != 2 * blocks + 2:
             raise AssertionError(f"evaluator {n}x{n}: {launches} convolution launches, expected {2 * blocks + 2}")
         for name, got, want in zip(("policy", "value", "ube"), kernel_out, chain):
@@ -951,13 +962,12 @@ def run_search_8x8(dev, gen) -> dict:
     search = make_gumbel_search(eng, with_agent(evaluate, agent), k, budget, max_depth=48)
     tree = init_tree(eng, envs, budget + 8, children)
     torch.cuda.synchronize()
-    _zero_launch_counts()
+    zero_launches()
     t0 = time.perf_counter()
     tree, slot = search(tree, gumbel_noise(gen, (batch, children)), torch.zeros(batch, device=dev))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _expect_launches("8x8 search at 16x256", budget + 1, 1,
-                                conv_per=(budget + 1) * _conv_per_evaluation(cfg))
+    launches = _expect_launches("8x8 search at 16x256", per_simulation(cfg), budget + 1)
     action = slot_action(tree, slot).to(torch.int64)
     if not bool(eng.legal_mask(envs).gather(1, action[:, None]).all()):
         raise AssertionError("8x8 search: an illegal action was chosen")
@@ -1047,9 +1057,9 @@ def check_small_reference(dev) -> None:
     xc = torch.randn(32, 256, 6, 6, generator=gen).to(torch.bfloat16)
     wc = (torch.randn(256, 256, 3, 3, generator=gen) / 48).to(torch.bfloat16)
     layer = conv._layer(wc.to(dev), torch.zeros(256, device=dev), split=256)
-    before = conv.conv3x3.launches
+    before = launch_counts()["conv3x3"]
     kernel = conv.conv3x3(xc.to(dev).permute(0, 2, 3, 1).contiguous(), layer)[0].view(32, 256, 6, 6)
-    if conv.conv3x3.launches != before + 1:
+    if launch_counts()["conv3x3"] != before + 1:
         raise AssertionError("the float64 check did not launch the convolution kernel")
     with conv_precision(torch.bfloat16):
         cudnn = _conv2d(xc.to(dev), wc.to(dev), torch.zeros(256, device=dev), torch.bfloat16)
@@ -1073,12 +1083,12 @@ def run_main_path(dev) -> tuple[dict, object]:
     # The flagship configuration, one timed move after the warm-up (the
     # bench's default is two: cut to keep the smoke inside its time).
     cfg = bench.BenchConfig(moves=1)
-    _zero_launch_counts()
+    zero_launches()
     res = bench.run(cfg, device=dev)
     # Each simulation: one descent, one expansion top-k (kernel A), one
     # SimHash (kernel B), one backup and one evaluation of 2 blocks + 2
     # convolution launches, graph replays included.
-    launches = {**_launch_counts(), **_tree_launch_counts(), **_conv_launch_counts()}
+    launches = launch_counts()
     expect = (cfg.budget + 1) * (cfg.moves + 1)  # the warm-up move included
     for name, count in launches.items():
         want = expect * (2 * cfg.blocks + 2 if name == "conv3x3" else 1)
@@ -1270,7 +1280,6 @@ def run_learner_main_path(dev) -> dict:
     from takzero_torch.data.native_loader import make_batch_native
     from takzero_torch.drivers import learn
     from takzero_torch.models.agent import new_agent
-    from takzero_torch.ops import simhash, topk
     from takzero_torch.ops.bitset import bitset_init, bitset_set
     from takzero_torch.ops.repr import input_channels
     from takzero_torch.parallel import coordinator as co
@@ -1289,8 +1298,7 @@ def run_learner_main_path(dev) -> dict:
         common = ["--directory", d, "--net", "net6_simhash", "--batch-size", "128", "--no-wait",
                   "--seed", "0", "--device", str(dev)]
         torch.cuda.reset_peak_memory_stats(dev)
-        topk.exact_top_k_unsorted.launches = 0
-        simhash.simhash_pack.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         learn.main(common + ["--pretrain-targets", "1280", "--pretrain-steps", str(pretrain), "--max-steps", "0",
                              "--steps-per-checkpoint", "10"])
@@ -1304,8 +1312,7 @@ def run_learner_main_path(dev) -> dict:
             loop.append(learn.main(common + ["--pretrain-steps", "0", "--max-steps", str(steps),
                                              "--chunk-steps", str(chunk), "--steps-per-checkpoint", str(per_ckpt)]))
         torch.cuda.synchronize(dev)
-        launches = {"exact_top_k_unsorted": topk.exact_top_k_unsorted.launches,
-                    "simhash_pack": simhash.simhash_pack.launches}
+        launches = _launches(*AB)
         expect = _expected_learner_launches(pretrain, runs)
         if launches != {"exact_top_k_unsorted": 0, "simhash_pack": expect}:
             raise AssertionError(f"learner launches {launches}, expected kernel B {expect} and kernel A 0")
@@ -1404,65 +1411,32 @@ def check_kernels_4x4(gen, dev) -> dict:
     return {"exact_top_k_unsorted": a_out, "simhash_pack": b_out}
 
 
-def _launch_counts() -> dict:
-    """Kernel A's and B's counters."""
-    from takzero_torch.ops import simhash, topk
-
-    return {"exact_top_k_unsorted": topk.exact_top_k_unsorted.launches,
-            "simhash_pack": simhash.simhash_pack.launches}
+def _launches(*names) -> dict:
+    """The launch counters (``takzero_torch/ops/_build.py``) of ``names``."""
+    counts = launch_counts()
+    return {name: counts[name] for name in names}
 
 
-def _tree_launch_counts() -> dict:
-    """The descent and backup kernels' counters."""
-    from takzero_torch.ops import tree
-
-    return {"tree_descend": tree.tree_descend.launches, "tree_backup": tree.tree_backup.launches}
-
-
-def _conv_launch_counts() -> dict:
-    """The evaluator's convolution kernel's counter."""
-    from takzero_torch.ops import conv
-
-    return {"conv3x3": conv.conv3x3.launches}
-
-
-def _conv_per_evaluation(cfg) -> int:
-    """The convolution kernel's launches in one evaluation of ``cfg``'s net:
-    the stem, two a block and the heads in bf16; none in float32, whose
-    folded path keeps ``_conv2d``."""
+def per_evaluation(cfg) -> dict:
+    """The launches of one evaluation of ``cfg``'s net: kernel B once on a
+    SimHash net; the convolution kernel for the stem, two a block and the
+    heads in bf16, none in float32, whose folded path keeps ``_conv2d``."""
     import torch
 
-    return 2 * cfg.blocks + 2 if cfg.compute_dtype == torch.bfloat16 else 0
+    return {"simhash_pack": int(cfg.novelty == "simhash"),
+            "conv3x3": 2 * cfg.blocks + 2 if cfg.compute_dtype == torch.bfloat16 else 0}
 
 
-def _zero_launch_counts() -> None:
-    """Kernel A's, B's, the tree kernels' and the convolution kernel's
-    counters to 0."""
-    from takzero_torch.ops import conv, simhash, topk, tree
-
-    topk.exact_top_k_unsorted.launches = 0
-    simhash.simhash_pack.launches = 0
-    tree.tree_descend.launches = tree.tree_backup.launches = 0
-    conv.conv3x3.launches = 0
+def per_simulation(cfg) -> dict:
+    """The launches of one simulation on a CUDA tree: kernel A, the descent
+    and the backup once each, and one evaluation."""
+    return {"exact_top_k_unsorted": 1, "tree_descend": 1, "tree_backup": 1, **per_evaluation(cfg)}
 
 
-def _expect_launches(what: str, per: int, count: int, b_per: int | None = None,
-                     tree_per: tuple[int, int] | None = None, conv_per: int | None = None) -> dict:
-    """Read the counters; kernel A must have launched ``per * count`` times
-    and kernel B ``b_per * count`` (``b_per`` defaults to ``per``; 0 for a
-    net without SimHash).  ``tree_per``: (descents, backups) per count, for
-    a path whose searches the counts of the tree kernels are known for;
-    ``conv_per``: the convolution kernel's launches per count (evaluations
-    times :func:`_conv_per_evaluation`).  The returned counts include the
-    kernels checked."""
-    got = _launch_counts()
-    want = {"exact_top_k_unsorted": per, "simhash_pack": per if b_per is None else b_per}
-    if tree_per is not None:
-        got.update(_tree_launch_counts())
-        want.update(tree_descend=tree_per[0], tree_backup=tree_per[1])
-    if conv_per is not None:
-        got.update(_conv_launch_counts())
-        want["conv3x3"] = conv_per
+def _expect_launches(what: str, want: dict, count: int) -> dict:
+    """Read the counters of the kernels that ``want`` names: each must have
+    launched ``want[name] * count`` times.  Returns their counts."""
+    got = _launches(*want)
     for name, n in got.items():
         if n != want[name] * count:
             raise AssertionError(f"{what}: {name} launched {n} times, expected {want[name]} x {count}")
@@ -1571,17 +1545,16 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
     cfg = NET_PRESETS[net]
     eng = engine(cfg.n, half_komi=cfg.half_komi)
     per_move = budget + 1
-    b_per = per_move if cfg.novelty == "simhash" else 0
-    conv_per = per_move * _conv_per_evaluation(cfg)  # an evaluation a simulation
+    per_sim = per_simulation(cfg)
     hashed = cfg.novelty in ("simhash", "lcghash")
     b_in_phase = 0  # kernel B's launches over the whole phase
 
     def zero_counts():
         nonlocal b_in_phase
-        b_in_phase += _launch_counts()["simhash_pack"]
-        _zero_launch_counts()
+        b_in_phase += launch_counts()["simhash_pack"]
+        zero_launches()
 
-    _zero_launch_counts()  # earlier phases' launches are not this phase's
+    zero_launches()  # earlier phases' launches are not this phase's
     with tempfile.TemporaryDirectory(prefix="takzero_loop_") as d:
         common = ["--directory", d, "--net", net, "--device", str(dev)]
         search = ["--batch", str(batch), "--sampled", str(sampled), "--budget", str(budget)]
@@ -1594,8 +1567,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         zero_counts()
         sp = selfplay.main(common + search + ["--seed", "1", "--max-games", str(games)])
         del sp["agent"]
-        sp_launches = _expect_launches("selfplay driver", per_move, sp["moves"], b_per, (per_move, per_move),
-                                       conv_per)
+        sp_launches = _expect_launches("selfplay driver", per_sim, per_move * sp["moves"])
         # 3. Ten learner steps on the selfplay targets.
         lr = learn.main(learner + ["--seed", "2", "--pretrain-steps", "0", "--max-steps", "10"])
         if lr["steps"] != 10:
@@ -1603,7 +1575,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         # 4. Two more moves: one reload, and the seen-set of the whole log.
         zero_counts()
         sp2 = selfplay.main(common + search + ["--seed", "3", "--max-steps", "2"])
-        _expect_launches("selfplay driver, 2 moves", per_move, 2, b_per, (per_move, per_move), conv_per)
+        _expect_launches("selfplay driver, 2 moves", per_sim, per_move * 2)
         if sp2["reloads"] != 1:
             raise AssertionError(f"the selfplay poller reloaded {sp2['reloads']} times, expected 1")
         if hashed:
@@ -1633,7 +1605,7 @@ def run_actor_loop(dev, net: str = "net4_simhash", batch: int = 128, sampled: in
         # 5. Two reanalyze steps on the exploded replays.
         zero_counts()
         re = reanalyze.main(common + search + ["--seed", "4", "--min-positions", str(batch), "--max-steps", "2"])
-        re_launches = _expect_launches("reanalyze", per_move, re["steps"], b_per, (per_move, per_move), conv_per)
+        re_launches = _expect_launches("reanalyze", per_sim, per_move * re["steps"])
         if re["steps"] != 2 or re["targets"] != 2 * batch:
             raise AssertionError(f"reanalyze: {re['steps']} steps and {re['targets']} targets")
         # 6. One train step on reanalyze targets (the learner mixes them in
@@ -1841,7 +1813,7 @@ def run_tei(engine_, tps: str) -> dict:
             raise AssertionError(f"TEI: bestmove {best[1]} is not legal")
         return best[1], infos
 
-    _zero_launch_counts()
+    zero_launches()
     t0 = time.perf_counter()
     for cmd, want in (("tei", "teiok"), ("isready", "readyok")):
         engine_.handle(cmd)
@@ -1868,7 +1840,8 @@ def run_tei(engine_, tps: str) -> dict:
     chunks = len(infos1) + len(infos2) + len(infos3)
     # A chunk: one plain simulation (a descent, a backup) and the serve
     # chunk, whose wavefront has its own loops; an evaluation each.
-    launches = _expect_launches("TEI", 2, chunks, tree_per=(1, 1), conv_per=2 * _conv_per_evaluation(engine_.cfg))
+    want = {name: 2 * n for name, n in per_simulation(engine_.cfg).items()}
+    launches = _expect_launches("TEI", {**want, "tree_descend": 1, "tree_backup": 1}, chunks)
     out = {"phase": "serve: TEI session", "net": "net6_simhash (16x256 bf16, SimHash 2^32)", "card": card_line(),
            "chunks": chunks, "sims_per_chunk": SIM_CHUNK, "bestmoves": [best1, best2, best3],
            "reused_root_visits": reused, "child_visits_before": child_visits,
@@ -1909,17 +1882,17 @@ def run_analysis(engine_, tps: str, dev) -> dict:
     eng = engine_.eng
     run = analysis.make_chunk_runner(cfg, eng, engine_.bundle, dev)
     tree = analysis.fresh_tree(cfg, eng, tps_to_state(eng.n, tps).map(lambda x: x[None].to(dev)))
-    _zero_launch_counts()
+    zero_launches()
     t0 = time.perf_counter()
     tree = run(tree)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {**_launch_counts(), **_tree_launch_counts(), **_conv_launch_counts()}
+    launches = launch_counts()
     # One simulation, then simulate_batch: a descent a simulation, and a
     # backup of its known stops and one of its leaves a batched one; two
     # evaluations.
     want = {"exact_top_k_unsorted": analysis.SIM_CHUNK, "simhash_pack": 2, "tree_descend": analysis.SIM_CHUNK,
-            "tree_backup": 2 * analysis.SIM_CHUNK - 1, "conv3x3": 2 * _conv_per_evaluation(cfg)}
+            "tree_backup": 2 * analysis.SIM_CHUNK - 1, "conv3x3": 2 * per_evaluation(cfg)["conv3x3"]}
     if launches != want:
         raise AssertionError(f"analysis chunk: launches {launches}, expected {want}")
     if int(tree.root_visit[0]) != analysis.SIM_CHUNK:
@@ -1959,7 +1932,7 @@ def run_evaluation(dev, games: int = 32, sampled: int = 4, budget: int = 8, max_
         handler.setFormatter(logging.Formatter("%(levelname)s:%(name)s:%(message)s"))
         logger = logging.getLogger("evaluation")
         logger.addHandler(handler)
-        _zero_launch_counts()
+        zero_launches()
         t0 = time.perf_counter()
         try:
             # --rss-limit-gb 0: the watchdog would outlive this phase in
@@ -1973,8 +1946,7 @@ def run_evaluation(dev, games: int = 32, sampled: int = 4, budget: int = 8, max_
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     half_moves = sum(r.half_moves for *_, r in results)
-    launches = _expect_launches("evaluation driver", budget + 1, half_moves, tree_per=(budget + 1, budget + 1),
-                                conv_per=(budget + 1) * _conv_per_evaluation(cfg))
+    launches = _expect_launches("evaluation driver", per_simulation(cfg), (budget + 1) * half_moves)
     lines = [x for x in buf.getvalue().splitlines() if " vs. " in x]
     if len(lines) != 2:
         raise AssertionError(f"evaluation driver: {len(lines)} match lines, expected 2")
@@ -2008,7 +1980,7 @@ def run_puzzles(engine_, dev, sampled: int = 8, budget: int = 24) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="takzero_puzzle_") as d:
         model = ckpt.save_checkpoint(d, "model.ckpt", ckpt.strip_hash_bits(engine_.bundle))
-        _zero_launch_counts()
+        zero_launches()
         t0 = time.perf_counter()
         results = puzzle.main(["--model", str(model), "--puzzle-db", str(PUZZLE_DB), "--net", "net6_simhash",
                                "--depths", "3,5,7,9", "--avoidance-depths", "2,4,6",
@@ -2017,8 +1989,7 @@ def run_puzzles(engine_, dev, sampled: int = 8, budget: int = 24) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     batches = sum(math.ceil(n / puzzle.BATCH_SIZE) for n in PUZZLE_COUNTS.values())
-    launches = _expect_launches("puzzle driver", budget + 1, batches, tree_per=(budget + 1, budget + 1),
-                                conv_per=(budget + 1) * _conv_per_evaluation(engine_.cfg))
+    launches = _expect_launches("puzzle driver", per_simulation(engine_.cfg), (budget + 1) * batches)
     got = [(r.category, r.attempted) for r in results]
     if got != [(c, n) for (c, _), n in PUZZLE_COUNTS.items()]:
         raise AssertionError(f"puzzle driver attempted {got}, the database holds {list(PUZZLE_COUNTS.values())}")
@@ -2078,7 +2049,7 @@ class _CountingDraws:
         """Close the move before (with its reanalyze batches); open one."""
         if self.snaps:
             self.snaps[-1] = (self.snaps[-1][0], self.searches)
-        self.snaps.append((_launch_counts(), 0))
+        self.snaps.append((_launches(*AB), 0))
         self.searches = 0
 
     def move(self, batch: int, children: int) -> dict:
@@ -2117,11 +2088,11 @@ def run_coscheduled(dev, net: str = "net4_simhash", batch: int = 128, sampled: i
                 "--steps-before-reanalyze", "12", "--pretrain-steps", "10", "--pretrain-targets", str(10 * batch),
                 "--max-moves", str(moves), "--device", str(dev)]
         torch.cuda.reset_peak_memory_stats(dev)
-        _zero_launch_counts()
+        zero_launches()
         draws = _CountingDraws(torch.Generator(device=dev).manual_seed(0))
         out = coscheduled.main(argv, draws=draws)
         torch.cuda.synchronize()
-        launches = _launch_counts()
+        launches = _launches(*AB)
         draws.mark()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         agent = out.pop("agent")
@@ -2205,13 +2176,13 @@ def run_tiny_run(dev, iters: int = 1, eval_games: int = 8) -> dict:
 
     snaps = {}  # the counters after pre-training (-1) and after each iteration
     with tempfile.TemporaryDirectory(prefix="takzero_tiny_") as d:
-        _zero_launch_counts()
+        zero_launches()
         t0 = time.perf_counter()
         res = tiny_run.main(["--iters", str(iters), "--eval-games", str(eval_games), "--out", f"{d}/tiny_run.json",
-                             "--device", str(dev)], on_iteration=lambda it: snaps.__setitem__(it, _launch_counts()))
+                             "--device", str(dev)], on_iteration=lambda it: snaps.__setitem__(it, _launches(*AB)))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = _launch_counts()
+        launches = _launches(*AB)
         summary = json.loads(Path(f"{d}/tiny_run.json").read_text(encoding="utf-8"))
     del res["agent"], res["initial_agent"]
     keys = {"wins", "losses", "draws", "games", "elo_gain", "final_loss", "wall_s", "card"}
@@ -2367,21 +2338,21 @@ def run_lcghash_drivers(dev, batch: int = 128, sampled: int = 8, budget: int = 2
         search = ["--batch", str(batch), "--sampled", str(sampled), "--budget", str(budget)]
         learner = common + ["--batch-size", str(batch), "--no-wait", "--steps-per-checkpoint", "14"]
         torch.cuda.reset_peak_memory_stats(dev)
-        _zero_launch_counts()
+        zero_launches()
         learn.main(learner + ["--seed", "0", "--pretrain-targets", str(10 * batch), "--pretrain-steps", "10",
                               "--max-steps", "0"])
-        _expect_launches("net4_lcghash learner pre-training", 0, 1, conv_per=0)
+        _expect_launches("net4_lcghash learner pre-training", dict.fromkeys(launch_counts(), 0), 1)
         log_after_pre = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)[0].size
         sp = selfplay.main(common + search + ["--seed", "1", "--max-steps", "4"])
-        sp_launches = _expect_launches("net4_lcghash selfplay", per, 4, 0, conv_per=per * _conv_per_evaluation(cfg))
+        sp_launches = _expect_launches("net4_lcghash selfplay", per_simulation(cfg), per * 4)
         eng = engine(cfg.n, half_komi=cfg.half_komi)
         lines = [t.to_line() for t in random_pretraining_targets(eng, 4 * batch, np.random.default_rng(3), device=dev)]
         Path(d, co.TARGETS_SELFPLAY).write_text("\n".join(lines) + "\n", encoding="utf-8")
-        _zero_launch_counts()
+        zero_launches()
         lr = learn.main(learner + ["--seed", "2", "--pretrain-steps", "0", "--max-steps", "4"])
-        _expect_launches("net4_lcghash learner", 0, 1, conv_per=0)
+        _expect_launches("net4_lcghash learner", dict.fromkeys(launch_counts(), 0), 1)
         sp2 = selfplay.main(common + search + ["--seed", "3", "--max-steps", "2"])
-        _expect_launches("net4_lcghash selfplay, 2 moves", per, 2, 0, conv_per=per * _conv_per_evaluation(cfg))
+        _expect_launches("net4_lcghash selfplay, 2 moves", per_simulation(cfg), per * 2)
         step14 = ckpt.read_checkpoint(f"{d}/model_0000014.ckpt")["hash_bits"].to(dev)
         idx, _ = ckpt.read_hash_indices(f"{d}/{ckpt.HASH_LOG}", 0)
         # Distinct indices that rebuild the learner's seen-set: the log
@@ -2470,21 +2441,21 @@ def run_ensemble_and_net5(dev, batch: int = 128, sampled: int = 8, budget: int =
         with tempfile.TemporaryDirectory(prefix="takzero_nov_") as d:
             common = ["--directory", d, "--net", net, "--device", str(dev)]
             torch.cuda.reset_peak_memory_stats(dev)
-            _zero_launch_counts()
+            zero_launches()
             try:
                 lr = learn.main(common + ["--batch-size", str(batch), "--no-wait", "--seed", "0",
                                           "--pretrain-targets", str(2 * batch), "--pretrain-steps", "2",
                                           "--max-steps", "0"])
             finally:
                 logging.getLogger("learn").removeHandler(handler)
-            _expect_launches(f"{net} learner", 0, 1, conv_per=0)
+            _expect_launches(f"{net} learner", dict.fromkeys(launch_counts(), 0), 1)
             warned = any("NOT trained" in w for w in warnings)
             if warned != (cfg.novelty == "ensemble"):
                 raise AssertionError(f"{net}: ensemble warning {'given' if warned else 'missing'}: {warnings}")
             sp = selfplay.main(common + ["--batch", str(batch), "--sampled", str(sampled), "--budget", str(budget),
                                          "--seed", "1", "--max-steps", "1"])
             # net4_ensemble's evaluations read the core through with_core.
-            launches = _expect_launches(f"{net} selfplay move", per, 1, 0, conv_per=per * _conv_per_evaluation(cfg))
+            launches = _expect_launches(f"{net} selfplay move", per_simulation(cfg), per)
             if sp["reloads"] != 1:
                 raise AssertionError(f"{net}: the selfplay poller reloaded {sp['reloads']} times, expected 1")
             eng = engine(cfg.n, half_komi=cfg.half_komi)
@@ -2495,10 +2466,10 @@ def run_ensemble_and_net5(dev, batch: int = 128, sampled: int = 8, budget: int =
                 lines = [t.to_line() for t in random_pretraining_targets(eng, 2 * batch, np.random.default_rng(3),
                                                                           device=dev)]
                 Path(d, co.TARGETS_SELFPLAY).write_text("\n".join(lines) + "\n", encoding="utf-8")
-                _zero_launch_counts()
+                zero_launches()
                 lr = learn.main(common + ["--batch-size", str(batch), "--no-wait", "--seed", "2",
                                           "--pretrain-steps", "0", "--max-steps", "2"])
-                _expect_launches("net5 learner", 0, 1, conv_per=0)
+                _expect_launches("net5 learner", dict.fromkeys(launch_counts(), 0), 1)
                 rows = [json.loads(x) for x in Path(d, "metrics.jsonl").read_text(encoding="utf-8").splitlines()]
                 if lr["steps"] != 2 or not all(math.isfinite(r[k]) for r in rows for k in r if k != "step"):
                     raise AssertionError(f"net5 learner: {lr['steps']} steps, metrics {rows}")
@@ -2569,14 +2540,14 @@ def run_eee_generalization(dev, replays, out, steps: int = 20, lcg_steps: int = 
     for novelty, n_steps in (("simhash", steps), ("lcghash", lcg_steps)):
         calls, report = [], {}
         csv = Path(out, f"eee_generalization_{novelty}.csv")
-        _zero_launch_counts()
+        zero_launches()
         t0 = time.perf_counter()
         with recording_kernel_inputs(calls, last=8), contextlib.redirect_stdout(io.StringIO()):
             rows = generalization.run(replays, csv, n=4, half_komi=4, novelty=novelty, hash_bits=26, steps=n_steps,
                                       batch_size=256, device=dev, report=report)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = _launch_counts()
+        launches = _launches(*AB)
         per_step = 8 if novelty == "simhash" else 0
         if launches != {"exact_top_k_unsorted": 0, "simhash_pack": per_step * n_steps}:
             raise AssertionError(f"EEE generalization ({novelty}): launches {launches}, expected B {per_step} a step")
@@ -2610,13 +2581,13 @@ def run_eee_rnd(dev, replays, out, steps: int = 20) -> dict:
 
     report = {}
     csv = Path(out, "eee_rnd.csv")
-    _zero_launch_counts()
+    zero_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         rows = rnd.run(replays, csv, n=4, half_komi=4, steps=steps, batch_size=256, device=dev, report=report)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    _expect_launches("EEE rnd", 0, 1)
+    _expect_launches("EEE rnd", dict.fromkeys(AB, 0), 1)
     _eee_rows_gate(rows, "EEE rnd", steps, hi=None)
     if not rows[-1]["after"] <= rows[-1]["current"]:
         raise AssertionError(f"EEE rnd: after {rows[-1]['after']} > current {rows[-1]['current']} on the last step")
@@ -2679,14 +2650,14 @@ def run_eee_ensemble(dev, targets, out, steps: int = 5) -> dict:
 
     report = {}
     csv = Path(out, "eee_ensemble.csv")
-    _zero_launch_counts()
+    zero_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         rows = ensemble.run(targets, csv, n=4, half_komi=4, steps=steps, batch_size=128, device=dev, report=report)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    _expect_launches("EEE ensemble", 0, 1)
+    _expect_launches("EEE ensemble", dict.fromkeys(AB, 0), 1)
     _eee_rows_gate(rows, "EEE ensemble", steps)
     if not all(m["loss_ensemble"] >= 0 for m in rows):
         raise AssertionError(f"EEE ensemble: a negative ensemble loss in {rows}")
@@ -2725,7 +2696,7 @@ def run_seen_ratio(dev, out, plies: int = 16, batch: int = 65_536, small: int = 
         _, model = ckpt.model_path_with_most_steps(d)
         torch.cuda.empty_cache()
         calls = []
-        _zero_launch_counts()
+        zero_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -2735,7 +2706,7 @@ def run_seen_ratio(dev, out, plies: int = 16, batch: int = 65_536, small: int = 
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        launches = _launch_counts()
+        launches = _launches(*AB)
         if launches != {"exact_top_k_unsorted": 0, "simhash_pack": plies}:
             raise AssertionError(f"seen-ratio: launches {launches}, expected B once per ply of {plies}")
         if [p for p, _ in pairs] != list(range(plies)) or not all(0.0 <= r <= 1.0 for _, r in pairs):
@@ -2855,15 +2826,14 @@ def run_visualize_search(dev, out, visits: int = 200) -> dict:
     expect_trees_close(trees[str(dev)], trees["cpu"], "visualize_search, small net", 1e-4)
 
     calls = []
-    _zero_launch_counts()
+    zero_launches()
     t0 = time.perf_counter()
     with recording_kernel_inputs(calls), contextlib.redirect_stdout(io.StringIO()):
         drawn = visualize_search.main(["--net", "net4_rnd", "--visits", str(visits), "--betas", "0,1",
                                        "--out-dir", str(out), "--device", str(dev)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _expect_launches("visualize_search", 1, 2 * visits, 0,
-                                conv_per=_conv_per_evaluation(NET_PRESETS["net4_rnd"]))
+    launches = _expect_launches("visualize_search", per_simulation(NET_PRESETS["net4_rnd"]), 2 * visits)
     for path, host in drawn:
         if not path.stat().st_size or int(host["root_visit"]) != visits:
             raise AssertionError(f"visualize_search: {path} ({path.stat().st_size} bytes), root visits "
@@ -3027,7 +2997,7 @@ def run_make_puzzles(dev, out_dir) -> dict:
         return timed
 
     calls = []
-    _zero_launch_counts()
+    zero_launches()
     mp.make_solver = timed_solver
     try:
         with recording_kernel_inputs(calls, last=PROVER_BUDGET + 1):
@@ -3040,7 +3010,8 @@ def run_make_puzzles(dev, out_dir) -> dict:
     torch.cuda.synchronize()
     if res["solves"] < 1 or len(solve_s) != res["solves"]:
         raise AssertionError(f"make_puzzles: {res['solves']} solves, {len(solve_s)} timed")
-    launches = _expect_launches("make_puzzles prover", PROVER_BUDGET + 1, res["solves"], b_per=0)
+    launches = _expect_launches("make_puzzles prover", {"exact_top_k_unsorted": 1, "simhash_pack": 0},
+                                (PROVER_BUDGET + 1) * res["solves"])
     if len(calls) != PROVER_BUDGET + 1 or {(c[0], tuple(c[1].shape), c[2]) for c in calls} != {
             ("A", (PROVER_BATCH, 9036), PROVER_CHILDREN)}:
         raise AssertionError(f"make_puzzles: recorded {len(calls)} kernel calls of the last solve, "
@@ -3128,14 +3099,13 @@ def run_reuse_ab(dev, out_dir) -> dict:
                                                                      device=dev))
     torch.cuda.empty_cache()
     calls = []
-    _zero_launch_counts()
+    zero_launches()
     with recording_kernel_inputs(calls, last=2 * (REUSE_AB_BUDGET + 1)):
         summary = reuse_ab.main(["--ckpt", str(model), "--net", "net6_simhash", "--budget", str(REUSE_AB_BUDGET),
                                  "--sampled", "8", "--max-moves", "4", "--device", str(dev)])
     torch.cuda.synchronize()
     half = summary["half_moves"]
-    launches = _expect_launches("reuse_ab", REUSE_AB_BUDGET + 1, half,
-                                conv_per=(REUSE_AB_BUDGET + 1) * _conv_per_evaluation(NET_PRESETS["net6_simhash"]))
+    launches = _expect_launches("reuse_ab", per_simulation(NET_PRESETS["net6_simhash"]), (REUSE_AB_BUDGET + 1) * half)
     # 4 moves a side: no 6x6 game can end, so every direction runs 8
     # half-moves and no game is scored.
     if half != 16 or not 0 <= summary["games"] <= 128:
@@ -3265,7 +3235,7 @@ def _rank_learn(driver_main, argv) -> dict:
     float32_without_tf32()
     lines = _Lines("learn")
     learn.new_agent, multihost.all_reduce_flat = keep, timed
-    _zero_launch_counts()
+    zero_launches()
     try:
         with recording_kernel_inputs(calls, last=2):
             result = driver_main(argv)
@@ -3275,7 +3245,7 @@ def _rank_learn(driver_main, argv) -> dict:
         lines.close()
     first = next(x for x in lines if x.startswith("pretrain 0:"))
     bundle = held["bundle"]
-    return {"result": result, "launches": _launch_counts(), "digest": _params_digest(bundle),
+    return {"result": result, "launches": _launches(*AB), "digest": _params_digest(bundle),
             "hash_bits": bundle["hash_bits"].cpu(), "hash_matrix": bundle["hash_matrix"].cpu(),
             "first_loss": float(re.search(r"'loss': ([-+\d.eE]+)", first).group(1)), "reduce_ms": reduce_ms,
             "calls": [(k, x.cpu(), None) for k, x, _, _ in calls], "rank": multihost.rank()}
@@ -3301,7 +3271,7 @@ def _rank_selfplay(driver_main, argv, float32: bool = True) -> dict:
         return out
 
     float32_without_tf32()
-    _zero_launch_counts()
+    zero_launches()
     multihost.all_gather_rows = timed
     try:
         with recording_kernel_inputs(calls, last=2 * (SP16["budget"] + 1)), \
@@ -3311,7 +3281,7 @@ def _rank_selfplay(driver_main, argv, float32: bool = True) -> dict:
     finally:
         multihost.all_gather_rows = gather
     result.pop("agent")
-    return {"result": result, "launches": {**_launch_counts(), **_conv_launch_counts()}, "rank": multihost.rank(),
+    return {"result": result, "launches": _launches(*AB, "conv3x3"), "rank": multihost.rank(),
             "gather_ms": gather_ms,
             "calls": [(k, x.cpu(), arg if k == "A" else arg.cpu()) for k, x, arg, _ in calls]}
 
@@ -3395,14 +3365,14 @@ def _rank_drivers(argv) -> dict:
     out = {"collectives": _collectives(dev)}
     for name, main in (("reanalyze", reanalyze.main), ("reanalyze_f32", reanalyze.main),
                        ("evaluation", evaluation.main), ("puzzle", puzzle.main), ("coscheduled", coscheduled.main)):
-        _zero_launch_counts()
+        zero_launches()
         t0 = time.perf_counter()
         with float32_presets(*(() if name == "reanalyze" else F32_NETS)):
             res = main(argv[name])
         torch.cuda.synchronize()
         if isinstance(res, dict):
             res.pop("agent", None)
-        out[name] = {"result": res, "launches": {**_launch_counts(), **_conv_launch_counts()},
+        out[name] = {"result": res, "launches": _launches(*AB, "conv3x3"),
                      "seconds": time.perf_counter() - t0}
     return out
 
@@ -3576,7 +3546,7 @@ def run_multi_device(dev) -> dict:
             t0 = time.perf_counter()
             with float32_presets(*(F32_NETS if float32 else ())):
                 one = selfplay.main(["--directory", str(d / f"s1_{dtype}"), *sp, "--device", str(dev)])
-                conv_per = _conv_per_evaluation(NET_PRESETS["net4_simhash"])  # 0 in float32
+                conv_per = per_evaluation(NET_PRESETS["net4_simhash"])["conv3x3"]  # 0 in float32
             t1 = time.perf_counter()
             two = _launcher("selfplay", ["--directory", str(d / f"s2_{dtype}"), *sp, "--device", shared],
                             functools.partial(_rank_selfplay, float32=float32))
@@ -3672,7 +3642,7 @@ def run_multi_device(dev) -> dict:
                     "coscheduled": ranks[0]["coscheduled"]["result"]["moves"]}
         for name, count in per_rank.items():
             # Only reanalyze runs in bf16, the rest in float32 (no convolution kernel).
-            conv_per = _conv_per_evaluation(cfg4) if name == "reanalyze" else 0
+            conv_per = per_evaluation(cfg4)["conv3x3"] if name == "reanalyze" else 0
             for o in ranks:
                 got = o[name]["launches"]["exact_top_k_unsorted"]
                 budget = 9 if name == "evaluation" else 25
@@ -3828,10 +3798,10 @@ def check_jax_checkpoint(dev) -> dict:
     load_s = time.perf_counter() - t0
     states = [tps_to_state(cfg.n, str(t)) for t in want["tps"]]
     envs = type(states[0])(*(torch.stack(x).to(dev) for x in zip(*states)))
-    _zero_launch_counts()
+    zero_launches()
     got = make_net_evaluate(cfg, eng, device=dev)(bundle, envs)
     torch.cuda.synchronize()
-    launches = _launch_counts()
+    launches = _launches(*AB)
     if launches != {"exact_top_k_unsorted": 0, "simhash_pack": 1}:
         raise AssertionError(f"17b: launches {launches}, expected kernel B once")
     err = {}
@@ -3910,10 +3880,10 @@ def run_pool_tools(dev) -> dict:
     launches = {}
     for name, main, extra, passes in (("pool_cliff", pool_cliff.main, ["--stub", "--reps", "1"], 1),
                                       ("phase_cliff", phase_cliff.main, [], 2)):
-        _zero_launch_counts()
+        zero_launches()
         with contextlib.redirect_stdout(io.StringIO()):
             rows = main(argv + extra)
-        launches[name] = _launch_counts()
+        launches[name] = _launches(*AB)
         want = {"exact_top_k_unsorted": passes * per_pool * n_pools, "simhash_pack": 0}
         if launches[name] != want:
             raise AssertionError(f"17d {name}: launches {launches[name]}, expected {want}")
@@ -4082,7 +4052,7 @@ def run_topk_moves(dev, filters: int = 256, blocks: int = 16, batch: int = 128, 
         tree_in = sp.tree
         events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if dev.type == "cuda" else []
         sync(dev)
-        _zero_launch_counts()
+        zero_launches()
         t0 = time.perf_counter()
         for event in events[:1]:
             event.record()
@@ -4092,7 +4062,7 @@ def run_topk_moves(dev, filters: int = 256, blocks: int = 16, batch: int = 128, 
             event.record()
         sync(dev)
         wall = time.perf_counter() - t0
-        launches = _launch_counts()
+        launches = _launches(*AB)
         want = {"exact_top_k_unsorted": budget + 1 if impl == "pallas" else 0, "simhash_pack": budget + 1}
         if launches != want:
             raise AssertionError(f"18b {impl}: launches {launches}, expected {want}")

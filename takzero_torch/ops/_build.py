@@ -6,6 +6,10 @@ into a shared library with a plain C interface under ``<repo>/build/``
 import time: the first kernel launch (or :func:`build_all`) triggers the
 build.  Libraries are named by a hash of their source and flags, so an
 edited source is rebuilt and never mixed with a stale one.
+
+Every wrapper launches through :func:`launch`, which counts each launch
+under the wrapper's name: the one registry of which kernels exist and how
+often each ran (:func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -27,15 +31,20 @@ NVCC_FLAGS = [
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# name -> (source, {symbol: argtypes})
+# name -> (source, {launch symbol: (the counter it counts under, argtypes)});
+# a counter is named after the wrapper that launches the kernel.
 KERNELS = {
-    "topk": ("topk.cu", {"topk_launch": [_P, _P, _P, _I, _I, _I, _P],
-                         "topk_wide_launch": [_P, _P, _P, _P, _I, _I, _I, _P]}),
-    "simhash": ("simhash.cu", {"simhash_launch": [_P, _P, _P, _I, _I, _I, _P]}),
-    "tree": ("tree.cu", {"tree_descend_launch": [_P] * 26 + [_I] * 6 + [_P],
-                         "tree_backup_launch": [_P] * 22 + [_I] * 6 + [_P]}),
-    "conv": ("conv.cu", {"conv3x3_launch": [_P] * 6 + [_I] * 10 + [_P]}),
+    "topk": ("topk.cu", {"topk_launch": ("exact_top_k_unsorted", [_P, _P, _P, _I, _I, _I, _P]),
+                         "topk_wide_launch": ("exact_top_k_unsorted", [_P, _P, _P, _P, _I, _I, _I, _P])}),
+    "simhash": ("simhash.cu", {"simhash_launch": ("simhash_pack", [_P, _P, _P, _I, _I, _I, _P])}),
+    "tree": ("tree.cu", {"tree_descend_launch": ("tree_descend", [_P] * 26 + [_I] * 6 + [_P]),
+                         "tree_backup_launch": ("tree_backup", [_P] * 22 + [_I] * 6 + [_P])}),
+    "conv": ("conv.cu", {"conv3x3_launch": ("conv3x3", [_P] * 6 + [_I] * 10 + [_P])}),
 }
+
+# Launches by counter since the process started or :func:`zero_launches`; a
+# CUDA-graph replay adds the launches its capture counted (``add_launches``).
+_launches = {counter: 0 for _, symbols in KERNELS.values() for counter, _ in symbols.values()}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -92,7 +101,7 @@ def build_all(names=None) -> dict[str, float]:
             raise RuntimeError("\n".join(errors))
         for name in todo:
             lib = ctypes.CDLL(str(_lib_path(name)))
-            for sym, argtypes in KERNELS[name][1].items():
+            for sym, (_, argtypes) in KERNELS[name][1].items():
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -106,6 +115,28 @@ def lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def check(err: int, what: str) -> None:
+def launch(name: str, symbol: str, *args) -> None:
+    """Call ``symbol`` of kernel library ``name`` on ``args`` (on the current
+    device and the stream they name), raise on a CUDA error and count the
+    launch."""
+    counter = KERNELS[name][1][symbol][0]
+    err = getattr(lib(name), symbol)(*args)
     if err != 0:
-        raise RuntimeError(f"takzero_torch: {what} launch failed with CUDA error {err}")
+        raise RuntimeError(f"takzero_torch: {counter} launch failed with CUDA error {err}")
+    _launches[counter] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    """A copy of the launch counters."""
+    return dict(_launches)
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta`` (counter -> launches) to the counters."""
+    for counter, n in delta.items():
+        _launches[counter] += n
+
+
+def zero_launches() -> None:
+    for counter in _launches:
+        _launches[counter] = 0

@@ -31,8 +31,9 @@ Layouts:
 
 :func:`conv3x3_plain` is the same function in plain torch, from the packed
 weights; the CPU tests hold it to ``_conv2d`` and ``chip_smoke.py`` holds the
-kernel to it.  ``conv3x3.launches`` counts the launches: ``2 blocks + 2`` an
-evaluation (34 at net6_simhash, 42 at net5).
+kernel to it.  Its launches count under ``conv3x3``
+(``_build.launch_counts``): ``2 blocks + 2`` an evaluation (34 at
+net6_simhash, 42 at net5).
 """
 
 from __future__ import annotations
@@ -215,15 +216,11 @@ def conv3x3(x: torch.Tensor, layer: ConvLayer, residual: torch.Tensor | None = N
     if m:
         bm, bn = choose_tile(m, layer.cout_pad)
         with torch.cuda.device(dev):
-            err = _build.lib("conv").conv3x3_launch(
+            _build.launch(
+                "conv", "conv3x3_launch",
                 x.data_ptr(), layer.weight.data_ptr(), layer.bias.data_ptr(),
                 None if residual is None else residual.data_ptr(), out0.data_ptr(),
                 None if out1 is None else out1.data_ptr(), m, n, cin, layer.cblocks, layer.cout_pad,
                 layer.cout, layer.split or 0, MODES[mode], bm, bn, torch.cuda.current_stream().cuda_stream,
             )
-        _build.check(err, "conv3x3")
-        conv3x3.launches += 1
     return result
-
-
-conv3x3.launches = 0

@@ -44,7 +44,8 @@ def simhash_pack(x: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
     """int64[B] packed sign bits of ``x @ matrix`` (bits <= 32).
 
     CPU tensors -> :func:`simhash_plain`; CUDA tensors -> the CUDA kernel
-    (or an exception).  ``simhash_pack.launches`` counts kernel launches.
+    (or an exception).  Its launches count under ``simhash_pack``
+    (``_build.launch_counts``).
     """
     if x.device.type == "cpu" and matrix.device.type == "cpu":
         return simhash_plain(x, matrix)
@@ -67,13 +68,6 @@ def simhash_pack(x: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b,), dtype=torch.int64, device=x.device)
     if b:
         with torch.cuda.device(x.device):
-            err = _build.lib("simhash").simhash_launch(
-                x.data_ptr(), matrix.data_ptr(), out.data_ptr(), b, inp, bits,
-                torch.cuda.current_stream().cuda_stream,
-            )
-        _build.check(err, "simhash")
-        simhash_pack.launches += 1
+            _build.launch("simhash", "simhash_launch", x.data_ptr(), matrix.data_ptr(), out.data_ptr(), b, inp,
+                          bits, torch.cuda.current_stream().cuda_stream)
     return out
-
-
-simhash_pack.launches = 0

@@ -102,7 +102,8 @@ def exact_top_k_unsorted(x: torch.Tensor, k: int):
     """(vals f32[B,k], idx i32[B,k]): the k largest per row, unsorted.
 
     CPU tensor -> :func:`topk_plain`; CUDA tensor -> the CUDA kernel (or an
-    exception).  ``exact_top_k_unsorted.launches`` counts kernel launches.
+    exception).  Its launches count under ``exact_top_k_unsorted``
+    (``_build.launch_counts``).
     """
     if x.device.type == "cpu":
         return topk_plain(x, k)
@@ -119,19 +120,12 @@ def exact_top_k_unsorted(x: torch.Tensor, k: int):
     vals = torch.empty((b, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, k), dtype=torch.int32, device=x.device)
     if b:
-        lib = _build.lib("topk")
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             if 8 * a <= _SMEM_LIMIT:
-                err = lib.topk_launch(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, a, k, stream)
+                _build.launch("topk", "topk_launch", x.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, a, k, stream)
             else:
                 work = torch.empty((b, a), dtype=torch.int32, device=x.device)
-                err = lib.topk_wide_launch(
-                    x.data_ptr(), vals.data_ptr(), idx.data_ptr(), work.data_ptr(), b, a, k, stream
-                )
-        _build.check(err, "topk")
-        exact_top_k_unsorted.launches += 1
+                _build.launch("topk", "topk_wide_launch", x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                              work.data_ptr(), b, a, k, stream)
     return vals, idx
-
-
-exact_top_k_unsorted.launches = 0

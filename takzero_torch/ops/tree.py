@@ -15,8 +15,8 @@ loops' bit for bit.
 At [128 lanes, C = 256] a level reads a node's row of seven arrays, about
 8 KB a lane; budget 384 from fresh openings walks 5-6 levels: about 6 MB,
 1.8 us at 3.35 TB/s.  The levels are dependent, so latency, not bytes, sets
-the time.  ``tree_descend.launches`` and ``tree_backup.launches`` count the
-launches.
+the time.  Their launches count under ``tree_descend`` and ``tree_backup``
+(``_build.launch_counts``).
 """
 
 from __future__ import annotations
@@ -74,7 +74,8 @@ def tree_descend(tree, beta: torch.Tensor, forced_slot, skip_root: bool, max_dep
         raise ValueError(f"tree_descend: the path must be [{b}, {max_depth}]")
     if b:
         with torch.cuda.device(dev):
-            err = _build.lib("tree").tree_descend_launch(
+            _build.launch(
+                "tree", "tree_descend_launch",
                 tree.child_action.data_ptr(), tree.child_flag.data_ptr(), tree.child_ply.data_ptr(),
                 tree.child_value.data_ptr(), tree.child_prob.data_ptr(), tree.child_std.data_ptr(),
                 tree.child_visit.data_ptr(), tree.child_node.data_ptr(), tree.root_flag.data_ptr(),
@@ -84,8 +85,6 @@ def tree_descend(tree, beta: torch.Tensor, forced_slot, skip_root: bool, max_dep
                                                "known_v", "stop_leaf", "leaf_parent", "leaf_slot")),
                 b, m, c, max_depth, int(skip_root), beta.stride(0), torch.cuda.current_stream().cuda_stream,
             )
-        _build.check(err, "tree_descend")
-        tree_descend.launches += 1
     return out
 
 
@@ -107,7 +106,8 @@ def tree_backup(tree, rec: dict, v_net: torch.Tensor, var_net: torch.Tensor, ski
     nets = [_lane_tensor(x, torch.float32, b, dev) for x in (v_net, var_net)]
     if b:
         with torch.cuda.device(dev):
-            err = _build.lib("tree").tree_backup_launch(
+            _build.launch(
+                "tree", "tree_backup_launch",
                 tree.child_action.data_ptr(), tree.child_flag.data_ptr(), tree.child_ply.data_ptr(),
                 tree.child_value.data_ptr(), tree.child_std.data_ptr(), tree.child_visit.data_ptr(),
                 tree.node_incomplete.data_ptr(), tree.root_visit.data_ptr(), tree.root_flag.data_ptr(),
@@ -115,9 +115,3 @@ def tree_backup(tree, rec: dict, v_net: torch.Tensor, var_net: torch.Tensor, ski
                 path_node.data_ptr(), path_slot.data_ptr(), *(x.data_ptr() for x in lanes + nets),
                 b, m, c, path_node.shape[1], int(skip_root), MODES[mode], torch.cuda.current_stream().cuda_stream,
             )
-        _build.check(err, "tree_backup")
-        tree_backup.launches += 1
-
-
-tree_descend.launches = 0
-tree_backup.launches = 0

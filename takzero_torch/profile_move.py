@@ -17,10 +17,11 @@ wall time), the number of device events and of host syncs (``aten::item``
 and ``aten::is_nonzero`` calls), the device time of the network's
 convolutions (every kernel under ``aten::convolution``, layout transposes
 included), the move's simulations by how their phases ran (eager, captured
-into CUDA graphs or replayed: ``search/core.py`` ``MIDDLES``), per
+into CUDA graphs or replayed: ``search/graphs.py`` ``MIDDLES``), per
 simulation (``budget + 1`` a move): the device events, the CUDA graph
 launches, the host syncs inside the search's ``search.*`` spans and the
-launches of the descent and backup kernels (their counters), and the
+launches of the descent and backup kernels (the launch counters,
+``ops/_build.py``), and the
 operators that take the most host time and the kernels that take the most
 device time.  The full operator table goes to ``--out``.
 """
@@ -38,8 +39,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .bench import BenchConfig, setup
-from .ops import tree as tree_ops
-from .search import core
+from .ops import _build
+from .search import graphs
 
 SYNC_OPS = ("aten::item", "aten::is_nonzero")
 SEARCH_SPANS = ("search.forward", "search.evaluate", "search.apply_eval", "search.backward")
@@ -90,13 +91,14 @@ def main() -> None:
     st.move()  # warm-up
     sync()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
-    middles = dict(core.MIDDLES)
-    walks = (tree_ops.tree_descend.launches, tree_ops.tree_backup.launches)
+    middles = dict(graphs.MIDDLES)
+    walks = _build.launch_counts()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         st.move()
         sync()
         wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
     rows = prof.key_averages()
     # A span (``utils/profile.py``) also shows as a device range over the
     # kernels it launched: count kernels and copies only.
@@ -124,13 +126,13 @@ def main() -> None:
         "device_events": len(on_device),
         "host_syncs": syncs,
         "conv_device_ms": conv_us / 1e3,
-        "middles": {k: core.MIDDLES[k] - middles[k] for k in middles},
+        "middles": {k: graphs.MIDDLES[k] - middles[k] for k in middles},
         "per_simulation": {
             "device_events": len(on_device) / sims,
             "graph_launches": graph_launches / sims,
             "host_syncs_in_search": _inside_search(events) / sims,
-            "tree_kernel_launches": {"descend": (tree_ops.tree_descend.launches - walks[0]) / sims,
-                                     "backup": (tree_ops.tree_backup.launches - walks[1]) / sims},
+            "tree_kernel_launches": {walk: (launches[f"tree_{walk}"] - walks[f"tree_{walk}"]) / sims
+                                     for walk in ("descend", "backup")},
         },
         "top_by_host": _top(host_rows, lambda r: r.self_cpu_time_total),
         "top_by_device": _top(device_rows, _device_us),

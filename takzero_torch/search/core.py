@@ -28,7 +28,13 @@ tail (``settle``), the evaluator and ``apply_eval``.  So on a CUDA tree a
 whole simulation has none, and within one search
 (``simulate.search_scope``, which the Gumbel search opens) its phases are
 captured into CUDA graphs in the second simulation and replayed in every
-later one (``_SearchGraphs``).
+later one (``search/graphs.py``).
+
+The per-node arithmetic (the PUCT pick, the children solver, a node's
+backed-up eval, the propagated value, the expansion's children and priors)
+is held once, in this module's helpers, which the serve chunk
+(``search/serve.py``) and the Gumbel root (``search/gumbel.py``) call too;
+they broadcast over [B] or [B, K] lanes.
 
 Trees are updated in place.
 """
@@ -42,23 +48,21 @@ from typing import Callable
 
 import torch
 
-from ..ops import conv as _conv
-from ..ops import simhash as _simhash
-from ..ops import topk as _topk
 from ..ops import tree as _tree
 from ..ops.topk import exact_top_k_unsorted, exact_top_k_unsorted_grouped, lax_top_k, topk_plain
 from ..tak.engine import TakEngine
 from ..tak.state import where_state
 from ..utils.profile import host_item, span
 from . import eval as ev
+from .graphs import MIDDLES, SearchGraphs
 from .tree import Tree
 
 NEG = -3.0e38
 
 
 def _at(row: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    """row[b, slot[b]] for a [B, C] row."""
-    return row.gather(1, slot[:, None])[:, 0]
+    """row[..., slot[...]] for a [..., C] row."""
+    return row.gather(-1, slot[..., None])[..., 0]
 
 
 def add_path_visits(child_visit: torch.Tensor, path_node: torch.Tensor, path_slot: torch.Tensor) -> None:
@@ -75,6 +79,95 @@ def add_path_visits(child_visit: torch.Tensor, path_node: torch.Tensor, path_slo
         live.to(child_visit.dtype),
         accumulate=True,
     )
+
+
+def select_child(tree: Tree, bar, node, node_visit, node_flag, beta, forced=None) -> tuple:
+    """PUCT's choice in each lane's ``node`` (its rows ``tree.child_*[bar,
+    node]``, lanes [...]), given the node's visits and flag and the lane's
+    ``beta``: the slot (``forced``'s where given) and that edge's child
+    node, flag, ply, value and visits.  Proven wins are pruned unless the
+    node is a proven loss; a node that holds only proven wins picks among
+    them rather than an invalid slot."""
+    action, flag, ply, value, prob, std, visit, child = (a[bar, node] for a in (
+        tree.child_action, tree.child_flag, tree.child_ply, tree.child_value, tree.child_prob, tree.child_std,
+        tree.child_visit, tree.child_node))
+    valid = action >= 0
+    q = ev.negated_float(flag, ply, value)
+    pv = node_visit.float()[..., None]
+    c_rate = torch.log((1.0 + pv + 500.0) / 500.0) + 4.0
+    u = c_rate * prob * torch.sqrt(pv) / (1.0 + visit)
+    score = q + u + beta[..., None] * std
+    pruned = (flag == ev.WIN) & (node_flag != ev.LOSS)[..., None]
+    unpruned = valid & ~pruned
+    pick = torch.where(unpruned.any(-1, keepdim=True), unpruned, valid)
+    slot = torch.where(pick, score, NEG).argmax(-1)
+    if forced is not None:
+        slot = forced.to(torch.int64)
+    return slot, tuple(_at(row, slot) for row in (child, flag, ply, value, visit))
+
+
+def solve_children(flag, ply, value, valid, incomplete) -> tuple:
+    """The solver over a node's children, rows [..., C]: whether every
+    valid child is known and the node complete (``incomplete`` [...]
+    False), and the node's solved eval (flag, ply, value), the negation of
+    its least child's."""
+    all_known = (~valid | (flag != ev.VALUE)).all(-1) & valid.any(-1)
+    mi = ev.argmin_eval(flag, ply, value, valid)
+    return all_known & ~incomplete, ev.negate(*ev.take_eval(flag, ply, value, mi))
+
+
+def backed_up_eval(trigger, solved, own, val_upd, std_upd) -> tuple:
+    """A node's eval after a backup: the ``solved`` (flag, ply, value) and
+    std 0 where ``trigger``; else its ``own`` (flag, ply, value, std), the
+    value and std moved to ``val_upd`` and ``std_upd`` unless its flag is
+    known.  Returns (known, flag, ply, value, std)."""
+    solved_f, solved_p, solved_v = solved
+    sf, sp, sv, ss = own
+    new_f = torch.where(trigger, solved_f, sf)
+    new_p = torch.where(trigger, solved_p, sp)
+    known = new_f != ev.VALUE
+    new_v = torch.where(trigger, solved_v, torch.where(known, sv, val_upd))
+    new_s = torch.where(trigger, 0.0, torch.where(known, ss, std_upd))
+    return known, new_f, new_p, new_v, new_s
+
+
+def leaf_propagated(stop_known, known_f, known_p, known_v, v_net, var_net) -> tuple:
+    """The (flag, ply, value, variance) each lane backs up from where it
+    stopped: a known stop's eval, else the network's value and variance,
+    discounted."""
+    return (torch.where(stop_known, known_f, ev.VALUE),
+            torch.where(stop_known, known_p, 0),
+            torch.where(stop_known, known_v, ev.DISCOUNT * v_net),
+            torch.where(stop_known, 0.0, ev.DISCOUNT**2 * var_net))
+
+
+def propagated(part, new, negated, prop) -> tuple:
+    """The (flag, ply, value, variance) each lane of ``part`` backs up past
+    a node whose eval is now ``new`` (:func:`backed_up_eval`'s): the node's
+    eval where it is known, else the value it received (``negated``) and
+    the variance, discounted; other lanes keep ``prop``."""
+    known, new_f, new_p, new_v, new_s = new
+    pf, pp, pv, pvar = prop
+    out_f = torch.where(known, new_f, ev.VALUE)
+    out_p = torch.where(known, new_p, 0)
+    out_v = torch.where(known, new_v, negated * ev.DISCOUNT)
+    out_var = torch.where(known, new_s * new_s, pvar * ev.DISCOUNT**2)
+    return (torch.where(part, out_f, pf), torch.where(part, out_p, pp), torch.where(part, out_v, pv),
+            torch.where(part, out_var, pvar))
+
+
+def expansion_children(logits, legal, c: int, topk_fn: Callable, lanes: tuple) -> tuple:
+    """The children an expansion stores: the ``c`` largest legal entries of
+    each row of ``logits`` [N, A] (``legal`` [N, A]) by ``topk_fn``, as
+    [*lanes, c] (N the product of ``lanes``): (valid, logit, action,
+    prior), the priors a softmax over the valid children."""
+    masked_logits = torch.where(legal, logits.float(), NEG).contiguous()
+    top_vals, top_idx = topk_fn(masked_logits, c)
+    top_vals, top_idx = top_vals.reshape(*lanes, c), top_idx.reshape(*lanes, c)
+    valid = top_vals > NEG / 2
+    mx = torch.where(valid, top_vals, -torch.inf).max(-1, keepdim=True).values
+    ex = torch.where(valid, torch.exp(top_vals - mx), 0.0)
+    return valid, top_vals, top_idx, ex / ex.sum(-1, keepdim=True).clamp(min=1e-30)
 
 
 def _kernel_a(x: torch.Tensor, k: int):
@@ -176,38 +269,11 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
 
         d = 0
         while d < max_depth and host_item(active.any()):  # one host sync per level
-            row_action = tree.child_action[bar, cur]
-            row_flag = tree.child_flag[bar, cur]
-            row_ply = tree.child_ply[bar, cur]
-            row_value = tree.child_value[bar, cur]
-            row_prob = tree.child_prob[bar, cur]
-            row_std = tree.child_std[bar, cur]
-            row_visit = tree.child_visit[bar, cur]
-            row_node = tree.child_node[bar, cur]
-
-            valid = row_action >= 0
-            q = ev.negated_float(row_flag, row_ply, row_value)
-            pv = cur_visit.float()[:, None]
-            c_rate = torch.log((1.0 + pv + 500.0) / 500.0) + 4.0
-            u = c_rate * row_prob * torch.sqrt(pv) / (1.0 + row_visit)
-            score = q + u + beta[:, None] * row_std
-            pruned = (row_flag == ev.WIN) & (cur_flag != ev.LOSS)[:, None]
-            unpruned = valid & ~pruned
-            # An incomplete node may hold only proven-win children: select
-            # among them rather than an invalid slot.
-            pick = torch.where(unpruned.any(-1, keepdim=True), unpruned, valid)
-            slot = torch.where(pick, score, NEG).argmax(-1)
-            if forced_slot is not None and d == 0:
-                slot = forced_slot.to(torch.int64)
-
+            slot, (cn, cf, cp, cv, cvisit) = select_child(tree, bar, cur, cur_visit, cur_flag, beta,
+                                                           forced_slot if d == 0 else None)
+            cvisit = cvisit + 1  # this sim's visit
             path_node[:, d] = torch.where(active, cur, -1)
             path_slot[:, d] = torch.where(active, slot, -1)
-
-            cn = _at(row_node, slot)
-            cf = _at(row_flag, slot)
-            cp = _at(row_ply, slot)
-            cv = _at(row_value, slot)
-            cvisit = _at(row_visit, slot) + 1  # this sim's visit
 
             unexp = cn < 0
             new_known = active & unexp & (cf != ev.VALUE)
@@ -329,12 +395,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         s_after = torch.where(lane_eval_root, root_s_after, leaf_s_after)
 
         legal = eng.legal_mask(env_eval)  # [B, A]
-        masked_logits = torch.where(legal, logits.float(), NEG).contiguous()
-        top_vals, top_idx = topk_fn(masked_logits, c)
-        valid_child = top_vals > NEG / 2
-        mx = torch.where(valid_child, top_vals, -torch.inf).max(-1, keepdim=True).values
-        ex = torch.where(valid_child, torch.exp(top_vals - mx), 0.0)
-        probs = ex / ex.sum(-1, keepdim=True).clamp(min=1e-30)
+        valid_child, top_vals, top_idx, probs = expansion_children(logits, legal, c, topk_fn, (b,))
 
         # Guarded expansion; non-expanding lanes write to the scratch row.
         capacity = m - 1
@@ -393,10 +454,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         v_net = v_net.float()
         var_net = var_net.float()
 
-        pf = torch.where(stop_known, rec["known_f"], ev.VALUE)
-        pp = torch.where(stop_known, rec["known_p"], 0)
-        pv = torch.where(stop_known, rec["known_v"], ev.DISCOUNT * v_net)
-        pvar = torch.where(stop_known, 0.0, ev.DISCOUNT**2 * var_net)
+        prop = leaf_propagated(stop_known, rec["known_f"], rec["known_p"], rec["known_v"], v_net, var_net)
 
         min_j = 1 if skip_root else 0
         jmax = host_item(torch.where(active_bwd, length, 0).max())  # one host sync
@@ -423,28 +481,19 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
                 sf, sp, sv, ss = (_at(r, ps) for r in (p_flag, p_ply, p_value, p_std))
                 svisit = _at(tree.child_visit[bar, pn], ps)
 
-            # Children of this node (solver inputs).
-            ca = tree.child_action[bar, node_j]
-            cfl = tree.child_flag[bar, node_j]
-            cpl = tree.child_ply[bar, node_j]
-            cva = tree.child_value[bar, node_j]
-            validc = ca >= 0
-            all_known = (~validc | (cfl != ev.VALUE)).all(-1) & validc.any(-1)
-            incomplete = tree.node_incomplete[bar, node_j]
-            trigger = (pf == ev.LOSS) | (all_known & ~incomplete)
-            mi = ev.argmin_eval(cfl, cpl, cva, validc)
-            solved_f, solved_p, solved_v = ev.negate(*ev.take_eval(cfl, cpl, cva, mi))
-
-            new_f = torch.where(trigger, solved_f, sf)
-            new_p = torch.where(trigger, solved_p, sp)
-            known_now = new_f != ev.VALUE
+            # The solver over this node's children.
+            pf, pp, pv, pvar = prop
+            closed, solved = solve_children(tree.child_flag[bar, node_j], tree.child_ply[bar, node_j],
+                                            tree.child_value[bar, node_j], tree.child_action[bar, node_j] >= 0,
+                                            tree.node_incomplete[bar, node_j])
+            trigger = (pf == ev.LOSS) | closed
 
             negated = ev.negated_float(pf, pp, pv)
             visf = svisit.float().clamp(min=1.0)
             val_upd = sv + (negated - sv) / visf
             std_upd = ss + (torch.sqrt(pvar) - ss) / visf
-            new_v = torch.where(trigger, solved_v, torch.where(known_now, sv, val_upd))
-            new_s = torch.where(trigger, 0.0, torch.where(known_now, ss, std_upd))
+            new = backed_up_eval(trigger, solved, (sf, sp, sv, ss), val_upd, std_upd)
+            _, new_f, new_p, new_v, new_s = new
 
             if is_root:
                 tree.root_flag.copy_(torch.where(part, new_f, tree.root_flag))
@@ -460,15 +509,7 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
                 tree.child_value[bar, pn] = torch.where(sel, new_v[:, None], p_value)
                 tree.child_std[bar, pn] = torch.where(sel, new_s[:, None], p_std)
 
-            # Outgoing propagated value.
-            out_f = torch.where(known_now, new_f, ev.VALUE)
-            out_p = torch.where(known_now, new_p, 0)
-            out_v = torch.where(known_now, new_v, negated * ev.DISCOUNT)
-            out_var = torch.where(known_now, new_s * new_s, pvar * ev.DISCOUNT**2)
-            pf = torch.where(part, out_f, pf)
-            pp = torch.where(part, out_p, pp)
-            pv = torch.where(part, out_v, pv)
-            pvar = torch.where(part, out_var, pvar)
+            prop = propagated(part, new, negated, prop)
         return tree
 
     def simulate(tree: Tree, beta, forced_slot=None, *, skip_root: bool = False, graphs=None):
@@ -495,14 +536,15 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
 
         On a CUDA device their phases (the descent kernel and ``settle``,
         the evaluator, ``apply_eval``, the backup kernel) run from CUDA
-        graphs (:class:`_SearchGraphs`), which read ``tree``'s storage and
+        graphs (``graphs.SearchGraphs``), which read ``tree``'s storage and
         this evaluator's state as they are during the search and are
         released when the scope closes.  Elsewhere it is ``simulate``
         itself."""
         if not _tree_kernels(tree):
             yield simulate
             return
-        graphs = _SearchGraphs(tree, max_depth, capture_evaluator)
+        graphs = SearchGraphs(tree, _descent_buffers(tree.batch_size, max_depth, tree.child_visit.device),
+                              capture_evaluator)
         try:
             yield functools.partial(simulate, graphs=graphs)
         finally:
@@ -550,11 +592,6 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
     return simulate, simulate_batch
 
 
-# Simulations run in this process, by how their phases ran: eagerly,
-# captured into a search's CUDA graphs (and replayed once), or replayed.
-MIDDLES = {"eager": 0, "captured": 0, "replayed": 0}
-
-
 def with_agent(evaluate: Callable, agent) -> Callable:
     """``envs -> evaluate(agent, envs)``: a search's evaluator bound to an
     agent, capturable in CUDA graphs where ``evaluate`` declares itself so
@@ -599,148 +636,6 @@ def _descent_buffers(b: int, max_depth: int, device) -> dict:
 def _eager(phase: str, fn: Callable):
     del phase
     return fn()
-
-
-def _launch_counts() -> tuple:
-    """The host counters of kernels A and B, of the descent and backup
-    kernels and of the evaluator's convolution kernel, on the wrappers their
-    modules hold now (a test may hold a counting one in a wrapper's place)."""
-    return (_topk.exact_top_k_unsorted.launches, _simhash.simhash_pack.launches,
-            _tree.tree_descend.launches, _tree.tree_backup.launches, _conv.conv3x3.launches)
-
-
-def _add_launches(added: tuple) -> None:
-    _topk.exact_top_k_unsorted.launches += added[0]
-    _simhash.simhash_pack.launches += added[1]
-    _tree.tree_descend.launches += added[2]
-    _tree.tree_backup.launches += added[3]
-    _conv.conv3x3.launches += added[4]
-
-
-def _captured(fn: Callable, pool, stream: torch.cuda.Stream):
-    """(graph, outputs): ``fn``'s device work captured on ``stream`` into
-    ``pool``, not run."""
-    graph = torch.cuda.CUDAGraph()
-    main = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(main)
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool, capture_error_mode="thread_local")
-        try:
-            out = fn()
-        except BaseException:
-            with contextlib.suppress(RuntimeError):
-                graph.capture_end()
-            raise
-        graph.capture_end()
-    main.wait_stream(stream)
-    return graph, out
-
-
-@functools.lru_cache(maxsize=None)
-def _capture_resources(index: int):
-    """(memory pool, side stream, keeper) of the search graphs on CUDA
-    device ``index``, one set for the process, so that each search captures
-    into the memory its predecessor's graphs left free.  The keeper, the
-    pool's first graph (one fill, never replayed), holds the pool open
-    between searches: a pool whose graphs are all released takes no further
-    capture."""
-    with torch.cuda.device(index):
-        pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
-        keeper, _ = _captured(lambda: torch.zeros((1,), device=f"cuda:{index}"), pool, stream)
-    return pool, stream, keeper
-
-
-class _SearchGraphs:
-    """The phases of one search's simulations on a CUDA device.
-
-    The first simulation runs eagerly, which builds the kernels and warms
-    cuDNN's algorithm choice, kernels A's and B's one-time attributes and
-    the engine's device tables.  Each later simulation replays a CUDA
-    graph of each phase, captured at its first use in one shared pool, on
-    a side stream: the forward (the descent kernel and ``settle``), the
-    evaluator where it is ``capturable``, ``apply_eval`` and the backward
-    (the backup kernel).  The graphs fix ``skip_root`` and whether a slot
-    is forced as the capture found them (the Gumbel search's simulations
-    after its first are all forced under ``skip_root``), and a later
-    simulation that differs raises.  An evaluator that is not capturable runs
-    eagerly, and its outputs are copied to fixed addresses for the later
-    graphs.  Every input the graphs read lies at a fixed address: the
-    tree, ``beta`` and the forced slot (copied into ``beta`` and
-    ``forced`` each simulation), the descent's outputs (``loop``) and each
-    graph's outputs; stream order keeps each replay behind the reads of
-    the last.  A replay adds to the kernels' counters the launches its
-    capture counted.
-    """
-
-    def __init__(self, tree: Tree, max_depth: int, capture_evaluator: bool):
-        dev = tree.child_visit.device
-        b = tree.batch_size
-        self.tree = tree
-        self.loop = _descent_buffers(b, max_depth, dev)
-        self.beta = torch.empty((b,), dtype=torch.float32, device=dev)
-        self.forced = torch.empty((b,), dtype=torch.int64, device=dev)
-        self.capture_evaluator = capture_evaluator
-        self.pool, self.stream, _ = _capture_resources(dev.index)
-        self.sims = 0
-        self.variant = None  # (skip_root, no forced slot) of the graphed simulations
-        self.graphs: dict = {}  # phase -> (graph, its outputs, launches it adds)
-        self.static = None  # an eager evaluator's outputs at fixed addresses
-
-    def check(self, tree: Tree, skip_root: bool, unforced: bool) -> None:
-        if tree is not self.tree:
-            raise ValueError("a search scope's simulations must search the tree it was opened on")
-        if self.sims == 0:
-            return
-        if self.variant is None:
-            self.variant = (skip_root, unforced)
-        elif self.variant != (skip_root, unforced):
-            raise ValueError(f"a search scope's graphs were captured with (skip_root, no forced slot) = "
-                             f"{self.variant}, not {(skip_root, unforced)}")
-
-    def inputs(self, beta, forced_slot) -> tuple:
-        """(beta, forced slot or None) at the fixed addresses the graphs
-        read: ``beta`` a number or a tensor that broadcasts to [B]."""
-        if isinstance(beta, torch.Tensor):
-            self.beta.copy_(beta)
-        else:
-            self.beta.fill_(float(beta))
-        if forced_slot is None:
-            return self.beta, None
-        return self.beta, self.forced.copy_(forced_slot)
-
-    def run(self, phase: str, fn: Callable):
-        if self.sims == 0:
-            return fn()
-        if phase == "evaluate" and not self.capture_evaluator:
-            out = fn()
-            if self.static is None:
-                self.static = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in out)
-            for dst, src in zip(self.static, out):
-                dst.copy_(src)
-            return self.static
-        if phase in self.graphs:
-            graph, out, added = self.graphs[phase]
-            _add_launches(added)
-        else:  # the capture counted this simulation's launches
-            graph, out, _ = self.graphs[phase] = self._capture(fn)
-        graph.replay()
-        return out
-
-    def _capture(self, fn: Callable):
-        before = _launch_counts()
-        graph, out = _captured(fn, self.pool, self.stream)
-        return graph, out, tuple(a - b for a, b in zip(_launch_counts(), before))
-
-    def end_simulation(self) -> str:
-        """The engagement of the simulation that ends (``MIDDLES``' key)."""
-        self.sims += 1
-        return "eager" if self.sims == 1 else "captured" if self.sims == 2 else "replayed"
-
-    def close(self) -> None:
-        graphs, self.graphs, self.static, self.loop, self.tree = self.graphs, {}, None, None, None
-        self.beta = self.forced = None
-        for graph, _, _ in graphs.values():
-            graph.reset()
 
 
 def _betas(tree: Tree, beta) -> torch.Tensor:

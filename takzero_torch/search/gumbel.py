@@ -19,7 +19,7 @@ import torch
 
 from ..tak.engine import TakEngine
 from . import eval as ev
-from .core import make_simulate
+from .core import make_simulate, solve_children
 from .tree import Tree
 
 
@@ -118,10 +118,8 @@ def make_gumbel_search(
         root_visit = torch.where(valid, ch_visit, 0).sum(-1, dtype=torch.int32) + 1
 
         any_loss = (valid & (ch_flag == ev.LOSS)).any(-1)
-        all_known = (~valid | (ch_flag != ev.VALUE)).all(-1) & valid.any(-1)
-        solved = any_loss | (all_known & ~tree.node_incomplete[:, 0])
-        mi = ev.argmin_eval(ch_flag, ch_ply, ch_val, valid)
-        sf, sp, sv = ev.negate(*ev.take_eval(ch_flag, ch_ply, ch_val, mi))
+        closed, (sf, sp, sv) = solve_children(ch_flag, ch_ply, ch_val, valid, tree.node_incomplete[:, 0])
+        solved = any_loss | closed
 
         visited = valid & (ch_visit > 0)
         q = ev.negated_float(ch_flag, ch_ply, ch_val)

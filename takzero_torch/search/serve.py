@@ -40,7 +40,8 @@ import torch
 from ..tak.engine import TakEngine
 from ..utils.profile import host_item, span
 from . import eval as ev
-from .core import NEG, _betas, make_topk
+from .core import (_betas, backed_up_eval, expansion_children, leaf_propagated, make_topk, propagated,
+                   select_child, solve_children)
 from .tree import Tree
 
 
@@ -105,36 +106,12 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
                 active = alive & (d >= 0)
                 curc = torch.where(active, cur, scratch)
 
-                row_action = tree.child_action[bar, curc]  # [B, K, C]
-                row_flag = tree.child_flag[bar, curc]
-                row_ply = tree.child_ply[bar, curc]
-                row_value = tree.child_value[bar, curc]
-                row_prob = tree.child_prob[bar, curc]
-                row_std = tree.child_std[bar, curc]
-                row_visit = tree.child_visit[bar, curc]
-                row_node = tree.child_node[bar, curc]
-
-                valid = row_action >= 0
-                q = ev.negated_float(row_flag, row_ply, row_value)
-                pv = cur_visit.float()[:, :, None]
-                c_rate = torch.log((1.0 + pv + 500.0) / 500.0) + 4.0
-                u = c_rate * row_prob * torch.sqrt(pv) / (1.0 + row_visit)
-                score = q + u + beta[:, None, None] * row_std
-                pruned = (row_flag == ev.WIN) & (cur_flag != ev.LOSS)[:, :, None]
-                unpruned = valid & ~pruned
-                pick = torch.where(unpruned.any(-1, keepdim=True), unpruned, valid)
-                slot = torch.where(pick, score, NEG).argmax(-1)  # [B, K]
-
+                slot, (cn, cf, cp, cv, cvisit) = select_child(tree, bar, curc, cur_visit, cur_flag,
+                                                               beta[:, None])  # [B, K]
+                cvisit = cvisit + 1
                 rec = active[:, :, None] & (dio == d[:, :, None])  # [B, K, D]
                 path_node = torch.where(rec, cur[:, :, None].to(torch.int32), path_node)
                 path_slot = torch.where(rec, slot[:, :, None].to(torch.int32), path_slot)
-
-                at = slot[:, :, None]
-                cn = row_node.gather(-1, at)[..., 0]
-                cf = row_flag.gather(-1, at)[..., 0]
-                cp = row_ply.gather(-1, at)[..., 0]
-                cv = row_value.gather(-1, at)[..., 0]
-                cvisit = row_visit.gather(-1, at)[..., 0] + 1
 
                 unexp = cn < 0
                 new_known = active & unexp & (cf != ev.VALUE)
@@ -220,14 +197,7 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
 
             # Expansion: one top-k (kernel A by default) over all leaves.
             legal = eng.legal_mask(env_eval)  # [B*K, A]
-            masked_logits = torch.where(legal, logits.float(), NEG).contiguous()
-            top_vals, top_idx = topk_fn(masked_logits, c)
-            top_vals = top_vals.reshape(b, K, c)
-            top_idx = top_idx.reshape(b, K, c)
-            valid_child = top_vals > NEG / 2
-            mx = torch.where(valid_child, top_vals, -torch.inf).max(-1, keepdim=True).values
-            ex = torch.where(valid_child, torch.exp(top_vals - mx), 0.0)
-            probs = ex / ex.sum(-1, keepdim=True).clamp(min=1e-30)
+            valid_child, top_vals, top_idx, probs = expansion_children(logits, legal, c, topk_fn, (b, K))
             legal_count = legal.sum(-1).reshape(b, K)
 
             want = wfirst.to(torch.int32)
@@ -267,10 +237,7 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
         # --------------------------------------------------------------
         with span("serve_chunk.D"):
             active_bwd = stop_known | lane_eval
-            pf = torch.where(stop_known, known_f, ev.VALUE)
-            pp = torch.where(stop_known, known_p, 0)
-            pv_ = torch.where(stop_known, known_v, ev.DISCOUNT * v_net)
-            pvar = torch.where(stop_known, 0.0, ev.DISCOUNT**2 * var_net)
+            prop = leaf_propagated(stop_known, known_f, known_p, known_v, v_net, var_net)
             jmax = host_item(torch.where(active_bwd, length, 0).max())  # the one host read
 
             for j in range(jmax - 1, -1, -1):
@@ -292,14 +259,11 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
                         )
                     )
 
-                ca = tree.child_action[bar, node_j]
-                cfl = tree.child_flag[bar, node_j]
-                cpl = tree.child_ply[bar, node_j]
-                cva = tree.child_value[bar, node_j]
-                validc = ca >= 0
-                all_known = (~validc | (cfl != ev.VALUE)).all(-1) & validc.any(-1)
-                incomplete = tree.node_incomplete[bar, node_j]
-                trigger = (pf == ev.LOSS) | (all_known & ~incomplete)
+                pf, pp, pv, pvar = prop
+                closed, solved = solve_children(tree.child_flag[bar, node_j], tree.child_ply[bar, node_j],
+                                                tree.child_value[bar, node_j], tree.child_action[bar, node_j] >= 0,
+                                                tree.node_incomplete[bar, node_j])
+                trigger = (pf == ev.LOSS) | closed
 
                 # Paths updating the same edge this level (same node_j) combine.
                 gkey2 = torch.where(part, node_j, -1 - kio.to(torch.int64))
@@ -307,21 +271,15 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
                 sp2 = same2 & part[:, None, :]
                 grp_trigger = (sp2 & trigger[:, None, :]).any(2)
 
-                mi = ev.argmin_eval(cfl, cpl, cva, validc)
-                solved_f, solved_p, solved_v = ev.negate(*ev.take_eval(cfl, cpl, cva, mi))
-                new_f = torch.where(grp_trigger, solved_f, sf)
-                new_p = torch.where(grp_trigger, solved_p, sp)
-                known_now = new_f != ev.VALUE
-
-                negated = ev.negated_float(pf, pp, pv_)
+                negated = ev.negated_float(pf, pp, pv)
                 m_cnt2 = sp2.sum(2).float()
                 sum_neg = torch.where(sp2, negated[:, None, :], 0.0).sum(2)
                 sum_sq = torch.where(sp2, torch.sqrt(pvar)[:, None, :], 0.0).sum(2)
                 visf = svisit.float().clamp(min=1.0)
                 val_upd = sv + (sum_neg - m_cnt2 * sv) / visf
                 std_upd = ss + (sum_sq - m_cnt2 * ss) / visf
-                new_v = torch.where(grp_trigger, solved_v, torch.where(known_now, sv, val_upd))
-                new_s = torch.where(grp_trigger, 0.0, torch.where(known_now, ss, std_upd))
+                new = backed_up_eval(grp_trigger, solved, (sf, sp, sv, ss), val_upd, std_upd)
+                _, new_f, new_p, new_v, new_s = new
 
                 writer = part & (_first_true(same2) == kio)
                 if is_root:
@@ -338,14 +296,7 @@ def make_serve_chunk(eng: TakEngine, evaluator: Callable, k: int, max_depth: int
                     tree.child_value[bar, wn, ps] = new_v
                     tree.child_std[bar, wn, ps] = new_s
 
-                out_f = torch.where(known_now, new_f, ev.VALUE)
-                out_p = torch.where(known_now, new_p, 0)
-                out_v = torch.where(known_now, new_v, negated * ev.DISCOUNT)
-                out_var = torch.where(known_now, new_s * new_s, pvar * ev.DISCOUNT**2)
-                pf = torch.where(part, out_f, pf)
-                pp = torch.where(part, out_p, pp)
-                pv_ = torch.where(part, out_v, pv_)
-                pvar = torch.where(part, out_var, pvar)
+                prop = propagated(part, new, negated, prop)
         return tree
 
     return serve_chunk

@@ -15,6 +15,8 @@ from takzero_torch.ops.repr import input_channels
 from takzero_torch.tak.moves import action_space
 
 from takzero_torch.ops import conv, simhash, topk
+from takzero_torch.ops._build import launch_counts
+from takzero_torch.search import graphs
 
 pytestmark = pytest.mark.cuda
 
@@ -65,10 +67,10 @@ def _adversarial_rows(a: int, gen: torch.Generator) -> torch.Tensor:
 
 
 def _expect_topk_equal(x: torch.Tensor, k: int) -> None:
-    before = topk.exact_top_k_unsorted.launches
+    before = launch_counts()["exact_top_k_unsorted"]
     vals, idx = topk.exact_top_k_unsorted(x, k)
     torch.cuda.synchronize()
-    assert topk.exact_top_k_unsorted.launches == before + 1
+    assert launch_counts()["exact_top_k_unsorted"] == before + 1
     pv, pi = topk.topk_plain(x, k)
     assert torch.equal(idx, pi)
     assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))  # -0.0 and +0.0 apart
@@ -100,10 +102,10 @@ def test_topk_kernel_rows_wider_than_shared_memory(cuda, rows, k):
 
 def _expect_simhash_equal(x: torch.Tensor, m: torch.Tensor) -> None:
     bits = m.shape[1]
-    before = simhash.simhash_pack.launches
+    before = launch_counts()["simhash_pack"]
     got = simhash.simhash_pack(x, m)
     again = simhash.simhash_pack(x, m)
-    assert simhash.simhash_pack.launches == before + 2
+    assert launch_counts()["simhash_pack"] == before + 2
     assert got.dtype == torch.int64 and torch.equal(got, again)
     want = simhash.simhash_plain(x, m).cpu()
     got = got.cpu()
@@ -173,7 +175,7 @@ def test_serve_chunk_and_simulate_batch_card_equals_cpu(cuda, n, moves, k):
         state = eng.initial(2, dev)
         for mv in moves:
             state = eng.step(state, torch.full((2,), ptn_to_action(n, mv), device=dev))
-        before = topk.exact_top_k_unsorted.launches
+        before = launch_counts()["exact_top_k_unsorted"]
         t1 = serve(simulate(init_tree(eng, state, 256, 64), 0.0), 0.0)
         t2 = simulate_batch(simulate(init_tree(eng, state, 256, 64), 0.0), 0.0, k)
         one = t1._replace(**{f: getattr(t1, f)[:1] for f in t1._fields if f != "node_env"},
@@ -182,7 +184,7 @@ def test_serve_chunk_and_simulate_batch_card_equals_cpu(cuda, n, moves, k):
         t3, ok = descend_device(one, best)
         assert bool(ok)
         if torch.device(dev).type == "cuda":
-            assert topk.exact_top_k_unsorted.launches == before + 2 + 1 + k
+            assert launch_counts()["exact_top_k_unsorted"] == before + 2 + 1 + k
         out[str(dev)] = (t1, t2, t3)
     for what, a, b in zip(("serve chunk", "simulate_batch", "descend_device"), out[str(cuda)], out["cpu"]):
         _trees_equal(a, b, what)
@@ -212,10 +214,10 @@ def test_gumbel_search_8x8_card_equals_cpu(cuda):
         evaluate = make_net_evaluate(cfg, eng, device=dev)
         envs = make_new_opening(eng)(sym.to(dev), pair.to(dev))
         search = make_gumbel_search(eng, lambda e: evaluate(agent, e), 4, 16, max_depth=16)
-        before = topk.exact_top_k_unsorted.launches
+        before = launch_counts()["exact_top_k_unsorted"]
         out[str(dev)] = search(init_tree(eng, envs, 24, 64), gumbel.to(dev), torch.zeros(2, device=dev))
         if torch.device(dev).type == "cuda":
-            assert topk.exact_top_k_unsorted.launches == before + 17
+            assert launch_counts()["exact_top_k_unsorted"] == before + 17
     (tc, sc), (tp, sp) = out[str(cuda)], out["cpu"]
     assert torch.equal(sc.cpu(), sp)
     _trees_equal(tc, tp, "8x8 search", tol=1e-4)
@@ -300,7 +302,6 @@ def test_tree_kernels_equal_the_plain_walks_and_the_loops(cuda, monkeypatch, n, 
     output and tree array bit for bit equal to the per-lane plain
     statements and to the batched loops, with and without a forced slot
     and ``skip_root``, at depth clips, and in the backup's three modes."""
-    from takzero_torch.ops import tree as tree_ops
     from takzero_torch.search import core
     from takzero_torch.search.lanewise import backup_plain, descend_plain
     from test_torch_lanewise import clone, forced_slot, marked_tree, stub_evaluator
@@ -313,9 +314,9 @@ def test_tree_kernels_equal_the_plain_walks_and_the_loops(cuda, monkeypatch, n, 
         slot = forced_slot(tree, gen) if forced else None
         descend = core.make_simulate(eng, stub_evaluator(eng), max_depth=depth).phases["descend"]
         kern, loop, plain = clone(tree), clone(tree), clone(tree)
-        before = tree_ops.tree_descend.launches
+        before = launch_counts()["tree_descend"]
         got = descend(kern, beta, slot, skip_root)
-        assert tree_ops.tree_descend.launches == before + 1
+        assert launch_counts()["tree_descend"] == before + 1
         want = _with_loops(monkeypatch, descend, loop, beta, slot, skip_root)
         lane = descend_plain(plain, beta, slot, skip_root, depth)
         torch.cuda.synchronize()
@@ -333,9 +334,9 @@ def test_tree_kernels_equal_the_plain_walks_and_the_loops(cuda, monkeypatch, n, 
         logits, v_net, var_net = evaluate(rec["env_eval"])
         phases["apply_eval"](base, rec, logits, v_net, var_net)
         kern, loop, plain = clone(base), clone(base), clone(base)
-        before = tree_ops.tree_backup.launches
+        before = launch_counts()["tree_backup"]
         phases["backward"](kern, rec, v_net, var_net, skip_root, mode)
-        assert tree_ops.tree_backup.launches == before + 1
+        assert launch_counts()["tree_backup"] == before + 1
         _with_loops(monkeypatch, phases["backward"], loop, rec, v_net, var_net, skip_root, mode)
         backup_plain(plain, rec, v_net, var_net, skip_root, mode)
         torch.cuda.synchronize()
@@ -417,12 +418,13 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
     search = make_gumbel_search(eng, evaluate, k, budget, max_depth=48)
 
     def run():
-        launches = core._launch_counts()
-        middles = dict(core.MIDDLES)
+        launches = launch_counts()
+        middles = dict(graphs.MIDDLES)
         tree, slot = search(init_tree(eng, envs, budget + 8, c), gumbel, betas)
         torch.cuda.synchronize()
-        return tree, slot, [a - z for a, z in zip(core._launch_counts(), launches)], \
-            {key: core.MIDDLES[key] - middles[key] for key in middles}
+        names = ("exact_top_k_unsorted", "simhash_pack", "tree_descend", "tree_backup", "conv3x3")
+        return tree, slot, [launch_counts()[k] - launches[k] for k in names], \
+            {key: graphs.MIDDLES[key] - middles[key] for key in middles}
 
     run()  # the process's first graphed search also opens the capture pool
     level = torch.cuda.memory_allocated(cuda)
@@ -487,7 +489,7 @@ def test_a_search_scope_refuses_a_simulation_unlike_its_graphs(cuda):
                                  torch.randint(0, 2, (b,), generator=gen).to(cuda))
     simulate = core.make_simulate(eng, simple_evaluator(eng), max_depth=8)
     tree = init_tree(eng, envs, 16, c)
-    before = dict(core.MIDDLES)
+    before = dict(graphs.MIDDLES)
     with simulate.search_scope(tree) as sim:
         sim(tree, 0.0)  # expands the roots
         slot = (tree.child_action[:, 0] >= 0).int().argmax(-1)
@@ -497,7 +499,7 @@ def test_a_search_scope_refuses_a_simulation_unlike_its_graphs(cuda):
             sim(tree, 0.0)
         with pytest.raises(ValueError, match="captured with"):
             sim(tree, 0.0, slot, skip_root=False)
-    assert {key: core.MIDDLES[key] - before[key] for key in before} == {"eager": 1, "captured": 1, "replayed": 1}
+    assert {key: graphs.MIDDLES[key] - before[key] for key in before} == {"eager": 1, "captured": 1, "replayed": 1}
 
 
 def _on_cpu(tree):
@@ -542,12 +544,12 @@ def test_conv_kernel_matches_plain_and_float64(cuda, b, n, c):
     want, scale = _float64_conv(x.permute(0, 3, 1, 2), layer)
     plain = conv.conv3x3_plain(x, layer, res).float()
     bound = (scale + res.permute(0, 3, 1, 2).double().abs()).permute(0, 2, 3, 1).float()
-    before = conv.conv3x3.launches
+    before = launch_counts()["conv3x3"]
     got = conv.conv3x3(x, layer, res).float()
     acc, _ = conv.conv3x3(x, raw)
     again, _ = conv.conv3x3(x, raw)
     torch.cuda.synchronize()
-    assert conv.conv3x3.launches == before + 3
+    assert launch_counts()["conv3x3"] == before + 3
     assert torch.equal(acc, again)  # no atomics: the same sums on every launch
     err = (acc.view(b, c, n, n).double() - want).abs() / scale.clamp(min=1e-30)
     assert float(err.max()) <= 1e-5
@@ -583,10 +585,10 @@ def test_bf16_apply_folded_card_equals_cpu(cuda, n, filters):
     fw_card = {k: (tuple(t.to(cuda) for t in v) if isinstance(v, tuple) else
                    [tuple(tuple(t.to(cuda) for t in conv_) for conv_ in pair) for pair in v])
                for k, v in fw_card.items()}
-    before = conv.conv3x3.launches
+    before = launch_counts()["conv3x3"]
     got = network.apply_folded(cfg, fw_card, planes.to(cuda), with_core=True)
     torch.cuda.synchronize()
-    assert conv.conv3x3.launches == before + 2 * cfg.blocks + 2
+    assert launch_counts()["conv3x3"] == before + 2 * cfg.blocks + 2
     for g, w, what in zip(got, want, ("policy", "value", "ube", "core")):
         if what == "value":
             torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-6)
@@ -611,9 +613,9 @@ def test_evaluator_launches_the_kernel_per_convolution(cuda, net, launches):
     envs = make_new_opening(eng)(torch.randint(0, 8, (128,), generator=gen).to(cuda),
                                  torch.randint(0, 2, (128,), generator=gen).to(cuda))
     evaluate = make_net_evaluate(cfg, eng, device=cuda)
-    before = conv.conv3x3.launches
+    before = launch_counts()["conv3x3"]
     logits, value, variance = evaluate(agent, envs)
     torch.cuda.synchronize()
-    assert conv.conv3x3.launches - before == launches
+    assert launch_counts()["conv3x3"] - before == launches
     assert logits.shape == (128, cfg.num_actions) and bool(torch.isfinite(logits).all())
     assert bool(torch.isfinite(value).all()) and bool(torch.isfinite(variance).all())

@@ -13,6 +13,8 @@ The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,8 +23,10 @@ import torch
 from takzero_tpu.ops.pallas_kernels import simhash_pack, simhash_pack_reference
 from takzero_tpu.ops.topk import exact_top_k_unsorted as pallas_topk
 from takzero_tpu.ops.topk import exact_top_k_unsorted_reference
+from takzero_torch.ops import _build
 from takzero_torch.ops import simhash as port_simhash
 from takzero_torch.ops import topk as port_topk
+from takzero_torch.ops._build import launch_counts
 
 torch.set_num_threads(2)
 
@@ -111,13 +115,49 @@ def test_topk_signed_zeros_tie_as_in_the_reference():
 
 def test_topk_wrapper_dispatch_on_cpu():
     x = torch.randn(3, 50)
-    before = port_topk.exact_top_k_unsorted.launches
+    before = launch_counts()["exact_top_k_unsorted"]
     vals, idx = port_topk.exact_top_k_unsorted(x, 7)
     pv, pi = port_topk.topk_plain(x, 7)
     assert torch.equal(vals, pv) and torch.equal(idx, pi)
-    assert port_topk.exact_top_k_unsorted.launches == before  # no kernel ran
+    assert launch_counts()["exact_top_k_unsorted"] == before  # no kernel ran
     with pytest.raises(ValueError, match="unsupported device"):
         port_topk.exact_top_k_unsorted(torch.empty(3, 50, device="meta"), 7)
+
+
+def test_every_kernel_launch_is_counted_in_the_registry(monkeypatch):
+    """Each launch symbol of ``_build.KERNELS`` counts one launch under one
+    of the registry's five names when ``_build.launch`` calls it (and none
+    when it fails), some wrapper in ``ops/`` launches it through
+    ``_build.launch``, and no module of the port keeps a counter of its
+    own: a new kernel cannot go uncounted."""
+    names = {"exact_top_k_unsorted", "simhash_pack", "tree_descend", "tree_backup", "conv3x3"}
+    assert set(launch_counts()) == names
+    errors = {}
+
+    class Lib:
+        def __getattr__(self, symbol):
+            return lambda *args: errors.get(symbol, 0)
+
+    monkeypatch.setattr(_build, "_libs", {name: Lib() for name in _build.KERNELS})
+    start = launch_counts()
+    ops = Path(_build.__file__).parent
+    wrappers = "".join(f.read_text(encoding="utf-8") for f in ops.glob("*.py"))
+    try:
+        for name, (_, symbols) in _build.KERNELS.items():
+            for symbol, (counter, _) in symbols.items():
+                assert counter in names and f'"{name}", "{symbol}"' in wrappers
+                before = launch_counts()
+                _build.launch(name, symbol, 1, 2)
+                after = launch_counts()
+                assert {k: n - before[k] for k, n in after.items() if n != before[k]} == {counter: 1}
+                errors[symbol] = 700
+                with pytest.raises(RuntimeError, match=f"{counter} launch failed with CUDA error 700"):
+                    _build.launch(name, symbol)
+                assert launch_counts() == after
+    finally:
+        _build.add_launches({k: start[k] - n for k, n in launch_counts().items()})
+    port = ops.parent
+    assert not [f for f in port.rglob("*.py") if ".launches" in f.read_text(encoding="utf-8")]
 
 
 def _simhash_case(b: int, inp: int, bits: int, planes: bool, seed: int):
@@ -156,8 +196,8 @@ def test_simhash_plain_matches_pallas(b, inp, bits, planes):
 
 def test_simhash_wrapper_dispatch_on_cpu():
     x, m = torch.randn(5, 40), torch.randn(40, 20)
-    before = port_simhash.simhash_pack.launches
+    before = launch_counts()["simhash_pack"]
     assert torch.equal(port_simhash.simhash_pack(x, m), port_simhash.simhash_plain(x, m))
-    assert port_simhash.simhash_pack.launches == before
+    assert launch_counts()["simhash_pack"] == before
     with pytest.raises(ValueError):
         port_simhash.simhash_pack(x.to("meta"), m.to("meta"))

@@ -20,7 +20,7 @@ from test_torch_lanewise import assert_same, clone
 
 from takzero_torch.models.agent import make_net_evaluate
 from takzero_torch.models.network import NetConfig
-from takzero_torch.search import core, gumbel
+from takzero_torch.search import core, graphs, gumbel
 from takzero_torch.search.agents import simple_evaluator
 from takzero_torch.search.lanewise import backup_plain, descend_plain
 from takzero_torch.search.openings import make_new_opening
@@ -109,9 +109,9 @@ def test_a_search_off_the_card_runs_every_middle_eagerly():
     tree = init_tree(eng, envs, 24, 64)
     with simulate.search_scope(tree) as sim:
         assert sim is simulate
-    before = dict(core.MIDDLES)
+    before = dict(graphs.MIDDLES)
     gumbel.make_gumbel_search(eng, simple_evaluator(eng), 8, 24)(tree, noise, betas)
-    assert {k: core.MIDDLES[k] - before[k] for k in before} == {"eager": 25, "captured": 0, "replayed": 0}
+    assert {k: graphs.MIDDLES[k] - before[k] for k in before} == {"eager": 25, "captured": 0, "replayed": 0}
 
 
 def test_only_the_net_evaluator_of_one_process_declares_itself_capturable():
