@@ -28,15 +28,17 @@ order:
    not multiples of the kernel's tiles.  Every bit whose float64 dot
    satisfies |dot| > 1e-4 must match, and two launches must give
    identical words;
-4b. the search's descent and backup kernels (``ops/tree.py``) at the
-   selfplay cells' shapes, [128 lanes, C=256] at 6x6 and [128, C=128] at
-   5x5, on the tree of a Gumbel search (simple evaluator, k=64, budget 384,
-   fresh openings): the descent with a forced slot under ``skip_root`` (as
-   the search's simulations run it) and without, and the backup of its
-   paths, every output and tree array bit for bit equal to the batched
-   loops'; timed (device time, call time, the loops' call time, the bytes
-   bound: a level reads a node's row of 8 arrays in the descent, of 4 in
-   the backup);
+4b. the search's descent, settle and backup kernels (``ops/tree.py``) at
+   the selfplay cells' shapes, [128 lanes, C=256] at 6x6 and [128, C=128]
+   at 5x5, on the tree of a Gumbel search (simple evaluator, k=64, budget
+   384, fresh openings): the descent with a forced slot under ``skip_root``
+   (as the search's simulations run it) and without, the settle of the
+   forced descent's lanes and the backup of its paths, every output and
+   tree array bit for bit equal to the batched loops' and ``settle``'s;
+   timed (device time, call time, the batched path's call time, and the
+   settle's device time too; the bytes bound: a level reads a node's row
+   of 8 arrays in the descent, of 4 in the backup; the settle reads a
+   state and a path and writes a state a lane);
 4c. the evaluator's convolution kernel (``ops/conv.py``) at the selfplay
    cells' tower layer, [128, 6x6, 256 -> 256] and [128, 5x5, 256 -> 256]
    with the residual: the float32 sum within 1e-5 of sum |x*w| of float64,
@@ -325,8 +327,8 @@ order:
    (``learner_allreduce_ms``), on phase 17 (``jax_checkpoint_launches``,
    ``pool_tools_launches``), and on phase 18b
    (``topk_ab_launches_per_move``) with each impl's µs per call at
-   f32[128, 9036] (``topk_impls_us_per_call``); then the descent and
-   backup kernels (``tree_descend``, ``tree_backup``) with their launches
+   f32[128, 9036] (``topk_impls_us_per_call``); then the descent, settle
+   and backup kernels (``tree_descend``, ``tree_settle``, ``tree_backup``) with their launches
    on the move program, the selfplay driver, reanalyze and the serve
    path, read from the counters in this run, and phase 4b's rows at
    [128, C=256] (``at_6x6``) and [128, C=128] (``at_5x5``); last the
@@ -638,8 +640,8 @@ def check_simhash(eng, envs, gen, dev) -> dict:
 
 @contextlib.contextmanager
 def tree_loops():
-    """The search's batched loops in place of the descent and backup
-    kernels, for the comparisons."""
+    """The search's batched loops and ``settle`` in place of the descent,
+    settle and backup kernels, for the comparisons."""
     from takzero_torch.search import core
 
     kernels = core._tree_kernels
@@ -710,23 +712,49 @@ def check_tree_kernels(dev) -> dict:
         torch.cuda.synchronize()
         expect_trees_close(kern, clone_tree(loop, "cpu"), f"backup kernel {n}x{n}", 0.0)
 
-        loop_state = phases["descend"](clone_tree(tree), beta, slot, True)
+        # The settle of the forced descent's lanes, scratch row included.
+        descended = clone_tree(tree)
+        loop_state = phases["descend"](descended, beta, slot, True)
+        kern, batched = clone_tree(descended), clone_tree(descended)
+        got = phases["settle"](kern, loop_state)
+        with tree_loops():
+            want = phases["settle"](batched, loop_state)
+        torch.cuda.synchronize()
+        pairs = [(f"env_eval.{k}", got["env_eval"]._asdict()[k], x) for k, x in want["env_eval"]._asdict().items()]
+        pairs += [(k, got[k], x) for k, x in want.items() if k != "env_eval"]
+        pairs += [(f"tree.{k}", x, getattr(batched, k)) for k, x in kern._asdict().items() if k != "node_env"]
+        for name, u, v in pairs:
+            if u.dtype == torch.float32:
+                u, v = u.view(torch.int32), v.view(torch.int32)
+            if not torch.equal(u, v):
+                raise AssertionError(f"settle kernel {n}x{n}: {name} differs from the batched settle's")
+
         levels = int(torch.where(loop_state["active"], depth, loop_state["length"]).sum())
         up = int(rec["length"].clamp(min=1).sub(1).sum())  # levels j >= 1 under skip_root
         timed, rec_out = clone_tree(tree), core._descent_buffers(b, depth, dev)
+        settled = clone_tree(descended)
+        # A lane's settle reads its leaf's state and writes the evaluated
+        # one (int32 height and tops, int64 colour bits a square; 28 bytes
+        # of counters), reads its path and 64 bytes of the descent's
+        # outputs, writes 24 of its own, and adds a visit on each edge.
+        state_bytes = 16 * n * n + 28
         walks = {
             "descend": (lambda: tree_ops.tree_descend(timed, beta, slot, True, depth, rec_out),
+                        lambda: phases["descend"](timed, beta, slot, True), levels,
                         levels * 8 * 4 * c + b * (depth * 8 + 48)),
-            "backup": (lambda: tree_ops.tree_backup(timed, rec, v_net, var_net, True), up * 4 * 4 * c),
+            "settle": (lambda: tree_ops.tree_settle(settled, loop_state, eng, depth),
+                       lambda: phases["settle"](settled, loop_state), int(loop_state["length"].sum()),
+                       b * (2 * state_bytes + depth * 8 + 64 + 24) + 8 * int(loop_state["length"].sum())),
+            "backup": (lambda: tree_ops.tree_backup(timed, rec, v_net, var_net, True),
+                       lambda: phases["backward"](timed, rec, v_net, var_net, True), up, up * 4 * 4 * c),
         }
-        for name, (fn, nbytes) in walks.items():
+        for name, (fn, loops_fn, levels_of, nbytes) in walks.items():
             ms, how = device_ms(fn)
-            loops_fn = (lambda: phases["descend"](timed, beta, slot, True)) if name == "descend" else \
-                (lambda: phases["backward"](timed, rec, v_net, var_net, True))
             with tree_loops():
                 loops_ms = call_ms(loops_fn, iters=20, warmup=3)
-            row = dict(shape=[b, c], levels=levels if name == "descend" else up, kernel_ms=ms,
-                       call_ms=call_ms(fn), loops_call_ms=loops_ms, bytes=nbytes, timing={"kernel": how})
+                extra = {"loops_device_ms": device_ms(loops_fn)[0]} if name == "settle" else {}
+            row = dict(shape=[b, c], levels=levels_of, kernel_ms=ms, call_ms=call_ms(fn), loops_call_ms=loops_ms,
+                       **extra, bytes=nbytes, timing={"kernel": how})
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 0)
             log({"phase": f"tree kernel {name}, {n}x{n}", **row})
             out[f"{name}_{n}x{n}"] = row
@@ -1085,9 +1113,9 @@ def run_main_path(dev) -> tuple[dict, object]:
     cfg = bench.BenchConfig(moves=1)
     zero_launches()
     res = bench.run(cfg, device=dev)
-    # Each simulation: one descent, one expansion top-k (kernel A), one
-    # SimHash (kernel B), one backup and one evaluation of 2 blocks + 2
-    # convolution launches, graph replays included.
+    # Each simulation: one descent, one settle, one expansion top-k
+    # (kernel A), one SimHash (kernel B), one backup and one evaluation of
+    # 2 blocks + 2 convolution launches, graph replays included.
     launches = launch_counts()
     expect = (cfg.budget + 1) * (cfg.moves + 1)  # the warm-up move included
     for name, count in launches.items():
@@ -1428,9 +1456,10 @@ def per_evaluation(cfg) -> dict:
 
 
 def per_simulation(cfg) -> dict:
-    """The launches of one simulation on a CUDA tree: kernel A, the descent
-    and the backup once each, and one evaluation."""
-    return {"exact_top_k_unsorted": 1, "tree_descend": 1, "tree_backup": 1, **per_evaluation(cfg)}
+    """The launches of one simulation on a CUDA tree: kernel A, the descent,
+    the settle and the backup once each, and one evaluation."""
+    return {"exact_top_k_unsorted": 1, "tree_descend": 1, "tree_settle": 1, "tree_backup": 1,
+            **per_evaluation(cfg)}
 
 
 def _expect_launches(what: str, want: dict, count: int) -> dict:
@@ -1838,10 +1867,10 @@ def run_tei(engine_, tps: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     chunks = len(infos1) + len(infos2) + len(infos3)
-    # A chunk: one plain simulation (a descent, a backup) and the serve
-    # chunk, whose wavefront has its own loops; an evaluation each.
+    # A chunk: one plain simulation (a descent, a settle, a backup) and the
+    # serve chunk, whose wavefront has its own loops; an evaluation each.
     want = {name: 2 * n for name, n in per_simulation(engine_.cfg).items()}
-    launches = _expect_launches("TEI", {**want, "tree_descend": 1, "tree_backup": 1}, chunks)
+    launches = _expect_launches("TEI", {**want, "tree_descend": 1, "tree_settle": 1, "tree_backup": 1}, chunks)
     out = {"phase": "serve: TEI session", "net": "net6_simhash (16x256 bf16, SimHash 2^32)", "card": card_line(),
            "chunks": chunks, "sims_per_chunk": SIM_CHUNK, "bestmoves": [best1, best2, best3],
            "reused_root_visits": reused, "child_visits_before": child_visits,
@@ -1888,11 +1917,12 @@ def run_analysis(engine_, tps: str, dev) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
-    # One simulation, then simulate_batch: a descent a simulation, and a
-    # backup of its known stops and one of its leaves a batched one; two
-    # evaluations.
+    # One simulation, then simulate_batch: a descent and a settle a
+    # simulation, and a backup of its known stops and one of its leaves a
+    # batched one; two evaluations.
     want = {"exact_top_k_unsorted": analysis.SIM_CHUNK, "simhash_pack": 2, "tree_descend": analysis.SIM_CHUNK,
-            "tree_backup": 2 * analysis.SIM_CHUNK - 1, "conv3x3": 2 * per_evaluation(cfg)["conv3x3"]}
+            "tree_settle": analysis.SIM_CHUNK, "tree_backup": 2 * analysis.SIM_CHUNK - 1,
+            "conv3x3": 2 * per_evaluation(cfg)["conv3x3"]}
     if launches != want:
         raise AssertionError(f"analysis chunk: launches {launches}, expected {want}")
     if int(tree.root_visit[0]) != analysis.SIM_CHUNK:
@@ -4267,12 +4297,14 @@ def main() -> int:
         # Phase 18b: one move under each top-k impl, read from the counters.
         entry["topk_ab_launches_per_move"] = {k: v["launches"][name] for k, v in topk_ab["moves"]["impls"].items()}
     kernels[0]["topk_impls_us_per_call"] = topk_ab["impls"]["us_per_call"]
-    # The descent and backup kernels: their launches on the paths that
-    # check them, read from the counters in this run, and phase 4b.
+    # The descent, settle and backup kernels: their launches on the paths
+    # that check them, read from the counters in this run, and phase 4b.
     for name, walk, replaces in (("tree_descend", "descend", "takzero_tpu/search/core.py:101 (a batched loop)"),
+                                 ("tree_settle", "settle", "takzero_tpu/search/core.py:101 (forward's fused tail)"),
                                  ("tree_backup", "backup", "takzero_tpu/search/core.py:430 (a batched loop)")):
         kernels.append({
-            "name": name, "route": "cuda", "source": "takzero_torch/csrc/tree.cu", "replaces": replaces,
+            "name": name, "route": "cuda",
+            "source": f"takzero_torch/csrc/{'settle' if walk == 'settle' else 'tree'}.cu", "replaces": replaces,
             "checked": True, "launches": launches[name],
             "selfplay_driver_launches": loop["launches"]["selfplay_driver"][name],
             "reanalyze_launches": loop["launches"]["reanalyze"][name],

@@ -39,6 +39,7 @@ KERNELS = {
     "simhash": ("simhash.cu", {"simhash_launch": ("simhash_pack", [_P, _P, _P, _I, _I, _I, _P])}),
     "tree": ("tree.cu", {"tree_descend_launch": ("tree_descend", [_P] * 26 + [_I] * 6 + [_P]),
                          "tree_backup_launch": ("tree_backup", [_P] * 22 + [_I] * 6 + [_P])}),
+    "settle": ("settle.cu", {"tree_settle_launch": ("tree_settle", [_P] + [_I] * 7 + [_P])}),
     "conv": ("conv.cu", {"conv3x3_launch": ("conv3x3", [_P] * 6 + [_I] * 10 + [_P])}),
 }
 

@@ -1,28 +1,36 @@
-"""The search's descent and backup as CUDA kernels, one block a tree.
+"""The search's descent, settle and backup as CUDA kernels, one block a tree.
 
-Replaces no TPU kernel: JAX runs both walks as batched loops
-(``takzero_tpu/search/core.py`` ``forward`` :101, ``backward`` :430), as the
-port does on the CPU (``search/core.py`` ``descend`` and ``backward``).  On a
-CUDA tree those two launch these kernels
-(``takzero_torch/csrc/tree.cu``): each lane of the batch walks its own path,
-so a lane gets a thread block, a child slot a thread, and the whole walk runs
-on the card with no host read (a simulation can then be captured whole in
-CUDA graphs).  Their per-lane algorithm, in plain torch, is
-``search/lanewise.py`` (``descend_plain``, ``backup_plain``); the float work
-repeats the batched loops' torch operators on the card, so the trees are the
-loops' bit for bit.
+They replace no TPU kernel: JAX runs both walks as batched loops
+(``takzero_tpu/search/core.py`` ``forward`` :101, ``backward`` :430) and
+fuses the forward's tail (the leaf's ``step`` and ``terminal_kind``), as the
+port does with batched operators on the CPU (``search/core.py`` ``descend``,
+``settle`` and ``backward``).  On a CUDA tree those launch these kernels
+(``takzero_torch/csrc/tree.cu``, ``csrc/settle.cu``): each lane of the batch
+walks its own path and settles its own leaf, so a lane gets a thread block
+(a child slot a thread in the walks, a square a thread in the settle), and a
+simulation runs on the card with no host read (it can then be captured whole
+in CUDA graphs).  Their per-lane algorithm, in plain torch, is
+``search/lanewise.py`` (``descend_plain``, ``settle_plain``,
+``backup_plain``); the float work repeats the batched loops' torch operators
+on the card and the settle's is integer, so the trees are the batched
+path's bit for bit.
 
 At [128 lanes, C = 256] a level reads a node's row of seven arrays, about
 8 KB a lane; budget 384 from fresh openings walks 5-6 levels: about 6 MB,
 1.8 us at 3.35 TB/s.  The levels are dependent, so latency, not bytes, sets
-the time.  Their launches count under ``tree_descend`` and ``tree_backup``
+the time.  The settle moves about 0.2 MB at [128, 6x6].  Their launches
+count under ``tree_descend``, ``tree_settle`` and ``tree_backup``
 (``_build.launch_counts``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
+from ..tak.state import TakState
 from . import _build
 
 MODES = {"all": 0, "known": 1, "leaf": 2}
@@ -115,3 +123,67 @@ def tree_backup(tree, rec: dict, v_net: torch.Tensor, var_net: torch.Tensor, ski
                 path_node.data_ptr(), path_slot.data_ptr(), *(x.data_ptr() for x in lanes + nets),
                 b, m, c, path_node.shape[1], int(skip_root), MODES[mode], torch.cuda.current_stream().cuda_stream,
             )
+
+
+# The tensors of a settle, in ``csrc/settle.cu``'s ``Settle`` order: the
+# tree's, the node pool's states', the descent's and the outputs'.
+_SETTLE_TREE = ("child_action", "child_flag", "child_ply", "child_value", "child_std", "child_visit",
+                "node_parent", "node_slot", "root_flag", "root_ply", "root_std", "overflow")
+_SETTLE_LOOP = dict(lane_root_expand=torch.bool, cur=torch.int64, cur_flag=torch.int32, active=torch.bool,
+                    path_node=torch.int32, path_slot=torch.int32, length=torch.int32, stop_known=torch.bool,
+                    known_f=torch.int32, known_p=torch.int32, known_v=torch.float32, stop_leaf=torch.bool,
+                    leaf_parent=torch.int64, leaf_slot=torch.int64)
+_SETTLE_OUT = dict(length=torch.int32, stop_known=torch.bool, known_f=torch.int32, known_p=torch.int32,
+                   known_v=torch.float32, lane_eval_leaf=torch.bool, lane_eval_root=torch.bool)
+_STATE_DTYPES = TakState(height=torch.int32, owner=torch.int64, tops=torch.int32, reserves=torch.int32,
+                         to_move=torch.int32, ply=torch.int32, reversible=torch.int32)
+
+
+def _state_shapes(s: int) -> TakState:
+    """The shapes of one Tak state's fields over ``s`` squares."""
+    return TakState((s,), (s,), (s,), (2, 2), (), (), ())
+
+
+def tree_settle(tree, loop: dict, eng, max_depth: int) -> dict:
+    """``search/core.py`` ``settle`` of every lane for a Tak engine ``eng``:
+    the depth clip, the path's visits, the leaf's state and its terminal
+    kind and the terminal stores, in place in ``tree``.  ``loop`` holds the
+    descent's outputs (``_descent_buffers``' fields, the path [B,
+    ``max_depth``]).  Returns ``settle``'s dict: the loop's path, leaf edge
+    and root-expansion lanes, and new tensors for the rest (the evaluated
+    states ``env_eval`` among them)."""
+    b, m, c = _check_tree(tree)
+    dev = tree.child_visit.device
+    env = tree.node_env
+    s = env.height.shape[-1]
+    n = math.isqrt(s)
+    if n * n != s or not 3 <= n <= 8 or n != eng.n:
+        raise ValueError(f"tree_settle: needs an engine's n x n board with 3 <= n <= 8, got {s} squares "
+                         f"for n={eng.n}")
+    checks = [(f"tree.{name}", getattr(tree, name), torch.int32, getattr(tree, name).shape)
+              for name in ("node_parent", "node_slot", "overflow")]
+    checks += [(f"node_env.{name}", x, dtype, (b, m, *shape)) for name, x, dtype, shape in zip(
+        env._fields, env, _STATE_DTYPES, _state_shapes(s))]
+    checks += [(name, loop[name], dtype, (b, max_depth) if name.startswith("path_") else (b,))
+               for name, dtype in _SETTLE_LOOP.items()]
+    for name, x, dtype, shape in checks:
+        if x.dtype != dtype or x.device != dev or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+            raise ValueError(f"tree_settle: {name} must be contiguous {dtype}{list(shape)} on {dev}, "
+                             f"got {x.dtype}{list(x.shape)} on {x.device}")
+    out = {name: torch.empty((b,), dtype=dtype, device=dev) for name, dtype in _SETTLE_OUT.items()}
+    env_eval = TakState(*(torch.empty((b, *shape), dtype=dtype, device=dev)
+                          for shape, dtype in zip(_state_shapes(s), _STATE_DTYPES)))
+    tensors = ([getattr(tree, name) for name in _SETTLE_TREE] + list(env) + [loop[name] for name in _SETTLE_LOOP]
+               + list(out.values()) + list(env_eval))
+    if b:
+        pointers = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
+        with torch.cuda.device(dev):
+            _build.launch("settle", "tree_settle_launch", pointers, b, m, c, n, max_depth, eng.half_komi,
+                          eng.reversible_limit, torch.cuda.current_stream().cuda_stream)
+    return dict(
+        path_node=loop["path_node"], path_slot=loop["path_slot"], length=out["length"],
+        stop_known=out["stop_known"], known_f=out["known_f"], known_p=out["known_p"], known_v=out["known_v"],
+        lane_eval_leaf=out["lane_eval_leaf"], lane_eval_root=out["lane_eval_root"],
+        lane_root_expand=loop["lane_root_expand"], leaf_parent=loop["leaf_parent"], leaf_slot=loop["leaf_slot"],
+        env_eval=env_eval,
+    )

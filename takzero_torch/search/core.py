@@ -14,8 +14,10 @@ expansions and leaf backups.
 
 On a CUDA tree the two data-dependent ``while_loop``s of the JAX program,
 the descent and the backup, are hand-written kernels that walk each lane's
-path with no host read (``ops/tree.py``, ``csrc/tree.cu``; their per-lane
-algorithm in plain torch is ``search/lanewise.py``).  On the CPU they are
+path with no host read, and with a Tak engine the forward's tail
+(``settle``) is a third (``ops/tree.py``, ``csrc/tree.cu``,
+``csrc/settle.cu``; their per-lane algorithm in plain torch is
+``search/lanewise.py``).  On the CPU they are
 Python loops of batched operators with one host check per level, which
 keep JAX's semantics exactly: the descent runs while ``depth < max_depth
 and active.any()`` (one ``.any()`` sync per level) and the backup runs
@@ -24,7 +26,8 @@ Each read is a ``sync`` span, and each phase of a simulation a
 ``search.*`` span (``utils/profile.py``).
 
 The rest of a simulation has fixed shapes and no host read: the forward
-tail (``settle``), the evaluator and ``apply_eval``.  So on a CUDA tree a
+tail (``settle``; batched operators on the CPU and for other engines), the
+evaluator and ``apply_eval``.  So on a CUDA tree a
 whole simulation has none, and within one search
 (``simulate.search_scope``, which the Gumbel search opens) its phases are
 captured into CUDA graphs in the second simulation and replayed in every
@@ -184,6 +187,15 @@ def _tree_kernels(tree: Tree) -> bool:
     return tree.child_visit.is_cuda
 
 
+def _settle_kernel(tree: Tree, eng) -> bool:
+    """Whether ``settle`` runs as ``ops/tree.py``'s settle kernel: on a tree
+    whose descent and backup are kernels (:func:`_tree_kernels`), searched
+    with a :class:`TakEngine`, whose rules the kernel holds.  Other engines
+    keep the batched operators on any device.  Looked up at each call, so
+    that a test may hold the batched ``settle`` on the card."""
+    return _tree_kernels(tree) and isinstance(eng, TakEngine)
+
+
 def make_topk(impl: str = "auto") -> Callable:
     """Expansion top-k: ``(masked_logits f32[B, A], k) -> (vals, idx i32)``.
 
@@ -297,8 +309,12 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
     def settle(tree: Tree, loop: dict) -> dict:
         """From the end of the level loop to the evaluation: the depth
         clip, the path's visits, the leaf environments and terminal
-        discovery.  Fixed shapes and no host read: a search replays it
-        from a CUDA graph (``search_scope``)."""
+        discovery; the settle kernel on a CUDA tree searched with a Tak
+        engine (:func:`_settle_kernel`), else batched operators.  Fixed
+        shapes and no host read: a search replays it from a CUDA graph
+        (``search_scope``)."""
+        if _settle_kernel(tree, eng):
+            return _tree.tree_settle(tree, loop, eng, max_depth)
         b, m, c = tree.child_visit.shape
         bar = torch.arange(b, device=tree.child_visit.device)
         cur, cur_flag = loop["cur"], loop["cur_flag"]

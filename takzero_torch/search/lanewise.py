@@ -1,20 +1,24 @@
-"""The descent and backup kernels' per-lane algorithm, in plain torch.
+"""The descent, settle and backup kernels' per-lane algorithm, in plain torch.
 
 ``ops/tree.py``'s kernels give each lane of the batch a thread block and
 walk its path alone: each lane is an independent tree.  ``descend_plain``
 and ``backup_plain`` state that walk one lane at a time, a Python loop
 over the lane's path, with the torch operators of the batched loops
 (``search/core.py`` ``descend`` and ``backward``) on the lane's rows and
-values, so that the three agree bit for bit on either device.  The CPU
-tests hold the plain statements to the batched loops, the card tests the
-kernels to both.  They read the device at every level: a check, not a
-path of the program.
+values, so that the three agree bit for bit on either device.
+``settle_plain`` states the settle kernel's: the leaf's Tak step square by
+square and the road flood on bitboards, in Python integers with torch's
+int64 shifts, so that it equals the batched ``settle`` (``TakEngine.step``
+and ``terminal_kind``) bit for bit.  The CPU tests hold the plain
+statements to the batched loops, the card tests the kernels to both.  They
+read the device at every level: a check, not a path of the program.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..tak.state import TakState
 from . import eval as ev
 from .core import NEG, _descent_buffers
 from .tree import Tree
@@ -129,3 +133,155 @@ def backup_plain(tree: Tree, rec: dict, v_net, var_net, skip_root: bool, mode: s
                 pf, pp, pv, pvar = torch.full_like(pf, ev.VALUE), torch.zeros_like(pp), negated * ev.DISCOUNT, \
                     pvar * ev.DISCOUNT**2
     return tree
+
+
+def _shl(a: int, k: int) -> int:
+    """torch's int64 ``a << k``: 0 for a count outside [0, 64)."""
+    if k < 0 or k >= 64:
+        return 0
+    x = (a << k) & (2**64 - 1)
+    return x - 2**64 if x >> 63 else x
+
+
+def _shr(a: int, k: int) -> int:
+    """torch's int64 ``a >> k``: the sign for a count outside [0, 63)."""
+    return a >> (63 if k < 0 or k >= 63 else k)
+
+
+def _flood(cells: int, seed: int, n: int, not_first_col: int, not_last_col: int) -> int:
+    """The squares of ``cells`` (a bitboard, bit ``row * n + col``)
+    reachable from ``seed`` through 4-neighbours within ``cells``."""
+    reach = cells & seed
+    while True:
+        grown = cells & (reach | ((reach << 1) & not_first_col) | ((reach >> 1) & not_last_col) | (reach << n)
+                         | (reach >> n))
+        if grown == reach:
+            return reach
+        reach = grown
+
+
+def _step_plain(n: int, board: list, scalars: list, action: int) -> None:
+    """``TakEngine.step`` of one state, in place: ``board`` the lists
+    (height, owner, tops) over the squares, ``scalars`` [reserves (a list
+    of two [stones, caps]), to_move, ply, reversible]; any action, legal or
+    not, as the batched step computes it."""
+    height, owner, tops = board
+    reserves, to_move, ply, reversible = scalars
+    s = n * n
+    ch, sq = divmod(action, s)
+    if ch < 3:  # a placement; the colour swaps in the first two plies
+        color = 1 - to_move if ply < 2 else to_move
+        piece = min(ch + 1, 3)
+        height[sq], owner[sq], tops[sq] = 1, owner[sq] | color, piece
+        reserves[color][int(piece == 3)] -= 1
+        reversible = 0
+    else:  # a spread: moves.py's pattern, dropped square by square
+        patterns = 2**n - 2
+        si = min(max(ch - 3, 0), 4 * patterns - 1)
+        direction, mask = divmod(si, patterns)
+        mask += 1
+        delta = (n, 1, -n, -1)[direction]
+        bits = [p for p in range(n) if mask >> p & 1]
+        carry = n - bits[0]
+        start = min(max(height[sq] - carry, 0), 63)
+        carried = _shr(owner[sq], start) & (_shl(1, carry) - 1)
+        moving_top = tops[sq]
+        height[sq], owner[sq], tops[sq] = start, owner[sq] & (2**start - 1), int(start > 0)
+        crushed = False
+        for i, (pos, nxt) in enumerate(zip(bits, bits[1:] + [n]), start=1):
+            drops, pre = nxt - pos, pos - bits[0]
+            tsq = min(max(sq + i * delta, 0), s - 1)
+            chunk = _shr(carried, pre) & (_shl(1, drops) - 1)
+            final = i == len(bits)
+            crushed |= final and tops[tsq] == 2
+            owner[tsq] |= _shl(chunk, height[tsq])
+            height[tsq] += drops
+            tops[tsq] = moving_top if final else 1
+        reversible = 0 if crushed else reversible + 1
+    scalars[1:] = [1 - to_move, ply + 1, reversible]
+
+
+def _terminal_kind_plain(n: int, board: list, scalars: list, half_komi: int, reversible_limit: int) -> int:
+    """``TakEngine.terminal_kind`` of one state (0 ongoing, 1 win for the
+    side to move, 2 loss, 3 draw), with the roads flooded on bitboards."""
+    height, owner, tops = board
+    reserves, to_move, _, reversible = scalars
+    s = n * n
+    color = [_shr(owner[q], max(height[q] - 1, 0)) & 1 for q in range(s)]
+    first_col = sum(1 << (r * n) for r in range(n))
+    last_col, first_row = first_col << (n - 1), 2**n - 1
+    last_row = first_row << (s - n)
+    masks = (n, ~first_col, ~last_col)
+    roads = []
+    for player in (0, 1):
+        cells = sum(1 << q for q in range(s) if tops[q] in (1, 3) and color[q] == player)
+        roads.append(bool(_flood(cells, first_col, *masks) & last_col)
+                     or bool(_flood(cells, first_row, *masks) & last_row))
+    if roads[0] or roads[1]:
+        result = 1 - to_move if roads[0] and roads[1] else (0 if roads[0] else 1)
+    elif all(t != 0 for t in tops) or any(sum(r) == 0 for r in reserves):
+        w2 = 2 * sum(t == 1 and k == 0 for t, k in zip(tops, color))
+        b2 = 2 * sum(t == 1 and k == 1 for t, k in zip(tops, color)) + half_komi
+        result = 0 if w2 > b2 else (1 if b2 > w2 else 2)
+    else:
+        result = 2 if reversible >= reversible_limit else -1
+    return 0 if result == -1 else (3 if result == 2 else (1 if result == to_move else 2))
+
+
+def settle_plain(tree: Tree, loop: dict, eng, max_depth: int) -> dict:
+    """``search/core.py`` ``settle`` for a Tak engine, one lane at a time,
+    as the settle kernel does it: the depth clip, one visit on each edge of
+    the path, the leaf's state (the root's where the lane expands its root,
+    else its parent's with the leaf edge's action applied), its terminal
+    kind and the terminal stores into the leaf's slot (the scratch row's
+    where it is not terminal) and the root's.  Updates ``tree`` in place and
+    returns ``settle``'s dict."""
+    b, m, c = tree.child_visit.shape
+    n, s = eng.n, eng.n * eng.n
+    out = {name: loop[name].clone() for name in ("length", "stop_known", "known_f", "known_p", "known_v")}
+    out["lane_eval_leaf"] = torch.zeros_like(loop["stop_leaf"])
+    out["lane_eval_root"] = torch.zeros_like(loop["stop_leaf"])
+    env = tree.node_env
+    env_eval = TakState(*(torch.empty_like(x[:, 0]) for x in env))
+    lanes = {name: loop[name].tolist() for name in ("lane_root_expand", "cur", "active", "stop_leaf",
+                                                      "leaf_parent", "leaf_slot", "path_node", "path_slot")}
+    for lane in range(b):
+        for pn, ps in zip(lanes["path_node"][lane], lanes["path_slot"][lane]):
+            if pn >= 0:
+                tree.child_visit[lane, pn, max(ps, 0)] += 1
+        root_expand = lanes["lane_root_expand"][lane]
+        leaf_parent, leaf_slot = lanes["leaf_parent"][lane], lanes["leaf_slot"][lane]
+        src = 0 if root_expand else leaf_parent
+        board = [x[lane, src].tolist() for x in env[:3]]
+        scalars = [x[lane, src].tolist() for x in env[3:]]
+        if not root_expand:
+            _step_plain(n, board, scalars, max(int(tree.child_action[lane, leaf_parent, leaf_slot]), 0))
+        for i, value in enumerate(board + scalars):
+            env_eval[i][lane] = torch.tensor(value, dtype=env_eval[i].dtype)
+        tk = _terminal_kind_plain(n, board, scalars, eng.half_komi, eng.reversible_limit)
+
+        if lanes["active"][lane]:  # clipped at max_depth: the current node's eval from its parent edge
+            cur = lanes["cur"][lane]
+            parent, slot = max(int(tree.node_parent[lane, cur]), 0), max(int(tree.node_slot[lane, cur]), 0)
+            out["stop_known"][lane] = True
+            out["known_f"][lane] = loop["cur_flag"][lane]
+            out["known_p"][lane] = tree.child_ply[lane, parent, slot]
+            out["known_v"][lane] = tree.child_value[lane, parent, slot]
+            out["length"][lane] = max_depth
+            tree.overflow[lane] += 1
+        leaf_term = lanes["stop_leaf"][lane] and tk != 0
+        root_term = root_expand and tk != 0
+        node = leaf_parent if leaf_term else m - 1
+        tree.child_flag[lane, node, leaf_slot] = tk
+        tree.child_ply[lane, node, leaf_slot] = 0
+        tree.child_std[lane, node, leaf_slot] = 0.0
+        if root_term:
+            tree.root_flag[lane], tree.root_ply[lane], tree.root_std[lane] = tk, 0, 0.0
+        if leaf_term:
+            out["stop_known"][lane] = True
+            out["known_f"][lane], out["known_p"][lane], out["known_v"][lane] = tk, 0, 0.0
+        out["lane_eval_leaf"][lane] = lanes["stop_leaf"][lane] and not leaf_term
+        out["lane_eval_root"][lane] = root_expand and not root_term
+    return dict(path_node=loop["path_node"], path_slot=loop["path_slot"], **out,
+                lane_root_expand=loop["lane_root_expand"], leaf_parent=loop["leaf_parent"],
+                leaf_slot=loop["leaf_slot"], env_eval=env_eval)

@@ -345,6 +345,79 @@ def test_tree_kernels_equal_the_plain_walks_and_the_loops(cuda, monkeypatch, n, 
         assert not torch.equal(loop.root_value, base.root_value) or not torch.equal(loop.child_value, base.child_value)
 
 
+@pytest.mark.parametrize("n,c", [(6, 256), (5, 128), (4, 64), (8, 64)])
+def test_settle_kernel_equals_the_batched_settle_and_the_plain(cuda, monkeypatch, n, c):
+    """The settle kernel at 32 lanes on a searched tree whose leaves are
+    planted with every way a game ends (``planted_tree``: roads, flat wins
+    and draws, the reversible limit, crushes, swap-ply placements; a
+    terminal and an ongoing root to expand; depth-clipped lanes at depth
+    1): every output, the evaluated states included, and every tree array,
+    the scratch row too, bit for bit equal to the batched ``settle`` on the
+    card and to ``settle_plain``, on every lane; one launch a call."""
+    from takzero_torch.search import core
+    from takzero_torch.search.lanewise import settle_plain
+    from test_torch_lanewise import assert_same, clone, planted_tree, stub_evaluator
+
+    for depth in (48, 1):
+        where = f"settle {n}x{n} depth={depth}"
+        eng, tree, loop, planted, kinds = _with_loops(monkeypatch, planted_tree, n, 2 * n, depth, 32, c, cuda)
+        settle = core.make_simulate(eng, stub_evaluator(eng), max_depth=depth).phases["settle"]
+        kern, ref, plain = clone(tree), clone(tree), clone(tree)
+        before = launch_counts()["tree_settle"]
+        got = settle(kern, loop)
+        assert launch_counts()["tree_settle"] == before + 1
+        want = _with_loops(monkeypatch, settle, ref, loop)
+        lane = settle_plain(plain, loop, eng, depth)
+        torch.cuda.synchronize()
+        assert eng.terminal_kind(want["env_eval"])[planted].tolist() == kinds, where
+        for out, name in ((got, where), (lane, where + " (plain)")):
+            assert_same(_on_cpu_dict(out["env_eval"]._asdict()), _on_cpu_dict(want["env_eval"]._asdict()),
+                        name + ": evaluated states")
+            assert_same(_on_cpu_dict({k: v for k, v in out.items() if k != "env_eval"}),
+                        _on_cpu_dict({k: v for k, v in want.items() if k != "env_eval"}), name + ": outputs")
+        assert_same(_on_cpu(kern), _on_cpu(ref), where + ": tree")
+        assert_same(_on_cpu(plain), _on_cpu(ref), where + " (plain): tree")
+
+
+@pytest.mark.parametrize("n,c", [(6, 256), (5, 128)])
+def test_gumbel_search_with_the_settle_kernel_equals_the_batched_settle(cuda, monkeypatch, n, c):
+    """Whole graphed Gumbel searches (32 games from positions 30-69 plies
+    into random playouts, k=16, budget 64, the simple evaluator) with the
+    settle kernel leave every tree array and chosen slot equal to the same
+    searches with ``settle`` held to its batched operators, whose descent
+    and backup are still the kernels; the kernel launches once a
+    simulation, graph replays included, and not at all when held."""
+    from takzero_torch.search import core
+    from takzero_torch.search.agents import simple_evaluator
+    from takzero_torch.search.gumbel import make_gumbel_search
+    from takzero_torch.search.tree import init_tree
+    from takzero_torch.selfplay import gumbel_noise
+    from takzero_torch.tak import engine
+    from test_torch_lanewise import roots
+
+    b, k, budget = 32, 16, 64
+    eng = engine(n, half_komi=4)
+    gen = torch.Generator().manual_seed(10 + n)
+    envs = roots(eng, gen, b, plies=(30, 70), device=cuda)
+    gumbel, betas = gumbel_noise(gen, (b, c)).to(cuda), (torch.rand(b, generator=gen) * 0.5).to(cuda)
+    search = make_gumbel_search(eng, simple_evaluator(eng), k, budget, max_depth=48)
+    out = {}
+    for kernel in (True, False):
+        with monkeypatch.context() as m:
+            if not kernel:
+                m.setattr(core, "_settle_kernel", lambda tree, eng: False)
+            before = launch_counts()
+            tree, slot = search(init_tree(eng, envs, budget + 8, c), gumbel, betas)
+            torch.cuda.synchronize()
+            counts = {name: launch_counts()[name] - before[name] for name in ("tree_descend", "tree_settle")}
+        assert counts == {"tree_descend": budget + 1, "tree_settle": budget + 1 if kernel else 0}
+        out[kernel] = tree, slot
+    (tree, slot), (ref, ref_slot) = out[True], out[False]
+    assert torch.equal(slot, ref_slot)
+    _trees_equal(tree, _on_cpu(ref), "search with the settle kernel")
+    assert bool((ref.child_flag != 0).any())  # the searches found terminal leaves
+
+
 @pytest.mark.parametrize("n,c", [(6, 256), (5, 128)])
 def test_simulate_batch_kernels_equal_the_loops(cuda, monkeypatch, n, c):
     """``simulate_batch`` (K = 8 descents with their known stops backed up
@@ -378,7 +451,7 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
     C=256 and C=128 (32 games, k=16, budget 64; a 32x2 bf16 net with SimHash over a half-set
     2^20 seen-set, or the MLP RND; or the simple evaluator, which runs
     eagerly between the graphs).  The counters of kernels A and B and of
-    the two tree kernels read one launch a simulation (B's with the SimHash
+    the three tree kernels read one launch a simulation (B's with the SimHash
     net), the convolution kernel's 2 blocks + 2 (with the net, whose kernel
     launches are inside the captured evaluator); the search engages 1
     eager, 1 captured and budget - 1 replayed simulations; and its graphs
@@ -422,7 +495,7 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
         middles = dict(graphs.MIDDLES)
         tree, slot = search(init_tree(eng, envs, budget + 8, c), gumbel, betas)
         torch.cuda.synchronize()
-        names = ("exact_top_k_unsorted", "simhash_pack", "tree_descend", "tree_backup", "conv3x3")
+        names = ("exact_top_k_unsorted", "simhash_pack", "tree_descend", "tree_settle", "tree_backup", "conv3x3")
         return tree, slot, [launch_counts()[k] - launches[k] for k in names], \
             {key: graphs.MIDDLES[key] - middles[key] for key in middles}
 
@@ -434,7 +507,7 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
     graphed = run()
     net = evaluator == "net"  # whose convolutions are the kernel's, 2 blocks + 2 an evaluation
     assert launches == [budget + 1, budget + 1 if novelty == "simhash" and net else 0,
-                        budget + 1, budget + 1, (2 * cfg.blocks + 2) * (budget + 1) if net else 0]
+                        budget + 1, budget + 1, budget + 1, (2 * cfg.blocks + 2) * (budget + 1) if net else 0]
     assert middles == {"eager": 1, "captured": 1, "replayed": budget - 1}
 
     checked = []
@@ -500,6 +573,10 @@ def test_a_search_scope_refuses_a_simulation_unlike_its_graphs(cuda):
         with pytest.raises(ValueError, match="captured with"):
             sim(tree, 0.0, slot, skip_root=False)
     assert {key: graphs.MIDDLES[key] - before[key] for key in before} == {"eager": 1, "captured": 1, "replayed": 1}
+
+
+def _on_cpu_dict(d: dict) -> dict:
+    return {k: v.cpu() for k, v in d.items()}
 
 
 def _on_cpu(tree):

@@ -1,14 +1,16 @@
-"""The descent and backup kernels' per-lane algorithm against the batched
-loops, on the CPU.
+"""The descent, settle and backup kernels' per-lane algorithm against the
+batched loops, on the CPU.
 
 ``search/lanewise.py`` states what the kernels of ``ops/tree.py`` do: each
-lane walks its own path, one level at a time.  Here ``descend_plain`` and
-``backup_plain`` must equal the batched loops of ``search/core.py`` (the
-CPU's path, which the JAX parity tests hold) bit for bit, on trees built by
-real Gumbel searches with a stub evaluator at 4x4 and 6x6, then marked with
-proven wins, losses and draws, incomplete nodes and nodes whose valid
-children are all proven wins.  The card's side (the kernels equal to both)
-is ``tests/test_torch_cuda.py``.
+lane walks its own path, one level at a time, and settles its own leaf.
+Here ``descend_plain``, ``settle_plain`` and ``backup_plain`` must equal the
+batched operators of ``search/core.py`` (the CPU's path, which the JAX
+parity tests hold) bit for bit, on trees built by real Gumbel searches with
+a stub evaluator at 4x4 and 6x6 (the settle also at 5x5 and 8x8, its leaves
+planted with positions that end the game in each way the rules know), then
+marked with proven wins, losses and draws, incomplete nodes and nodes whose
+valid children are all proven wins.  The card's side (the kernels equal to
+both) is ``tests/test_torch_cuda.py``.
 
 Batch and slots: 16 lanes and C=64.  The CPU's ``torch.pow`` (the
 discount of a proven eval) rounds its vectorised body and its scalar tail
@@ -25,12 +27,13 @@ import pytest
 import torch
 
 from takzero_torch.search import core, eval as ev, gumbel
-from takzero_torch.search.lanewise import backup_plain, descend_plain
+from takzero_torch.search.lanewise import backup_plain, descend_plain, settle_plain
 from takzero_torch.search.agents import simple_evaluator
 from takzero_torch.search.tree import init_tree
 from takzero_torch.selfplay import gumbel_noise
 from takzero_torch.tak.engine import engine
-from takzero_torch.tak.state import where_state
+from takzero_torch.tak.moves import DEFAULT_RESERVES, ptn_to_action
+from takzero_torch.tak.state import TakState, where_state
 
 torch.set_num_threads(2)
 
@@ -206,3 +209,105 @@ def test_a_gumbel_search_walked_lane_by_lane_equals_the_loops(monkeypatch, n, se
     (tree, slot), (ref, ref_slot) = out[True], out[False]
     assert torch.equal(slot, ref_slot)
     assert_same(tree, ref, "searched tree")
+
+
+def position(n: int, stacks: dict, to_move: int = 0, ply: int = 10, reversible: int = 0, reserves=None) -> TakState:
+    """One state (no batch dimension): ``stacks`` maps a square ("a1") to
+    its stack's colours bottom to top ("1" white, "2" black) and an optional
+    "S" or "C" for its top."""
+    height, owner, tops = [0] * n * n, [0] * n * n, [0] * n * n
+    for square, stack in stacks.items():
+        q = (int(square[1:]) - 1) * n + ord(square[0]) - ord("a")
+        colours = stack.rstrip("SC")
+        height[q], owner[q] = len(colours), sum((int(x) - 1) << i for i, x in enumerate(colours))
+        tops[q] = 3 if stack.endswith("C") else 2 if stack.endswith("S") else 1
+    stones, caps = DEFAULT_RESERVES[n]
+    reserves = [[stones - 8, caps], [stones - 8, caps]] if reserves is None else reserves
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+    return TakState(i32(height), torch.tensor(owner, dtype=torch.int64), i32(tops), i32(reserves), i32(to_move),
+                    i32(ply), i32(reversible))
+
+
+def planted_positions(n: int) -> list:
+    """(what, state, PTN move, the terminal kind after it: 0 ongoing, 1 win
+    for the side then to move, 2 loss, 3 draw) at half komi 4 and the
+    reversible limit 50: each way a game ends, and the steps that reset or
+    reach the reversible count."""
+    last = chr(ord("a") + n - 1)
+    row = lambda r, colour, files=n - 1: {f"{chr(ord('a') + c)}{r}": colour for c in range(files)}  # noqa: E731
+    walls = {f"{chr(ord('a') + c)}{r}": "12"[(r + c) % 2] + "S" for r in range(1, n + 1) for c in range(n)}
+    del walls["a1"]
+    return [
+        ("white road", position(n, row(1, "1")), f"{last}1", 2),
+        ("black road, south to north", position(n, {f"a{r}": "2" for r in range(1, n)}, to_move=1, ply=11),
+         f"a{n}", 2),
+        ("both roads: the mover's", position(n, {**row(1, "2"), **row(2, "1"), f"{last}2": "12"}, to_move=1, ply=11),
+         f"{last}2-", 2),
+        ("the opponent's road", position(n, {**row(2, "2"), f"{last}2": "21"}), f"{last}2+", 1),
+        ("full board, flat win", position(n, walls), "a1", 1),
+        ("full board, flat draw", position(n, {**walls, "b2": "1"}), "a1", 3),
+        ("empty reserve, flat win", position(n, {"a1": "1", "c1": "1", "a3": "1", "c3": "2"},
+                                             reserves=[[1, 0], [10, 0]]), "b2", 2),
+        ("reversible limit", position(n, {"b2": "1"}, reversible=49), "b2>", 3),
+        ("a capstone crushes a wall", position(n, {"b2": "1C", "c2": "2S"}, reversible=49), "b2>", 0),
+        ("a spread whose last drop crushes", position(n, {"b2": "21C", "d2": "2S"}, reversible=49), "2b2>11", 0),
+        ("swap ply 0", position(n, {}, ply=0), "a1", 0),
+        ("swap ply 1", position(n, {"a1": "2"}, to_move=1, ply=1), f"{last}{n}", 0),
+        ("a tall stack spread one by one", position(n, {"a2": "2121212121"}), f"{n - 1}a2>" + "1" * (n - 1), 0),
+    ]
+
+
+def planted_tree(n: int, seed: int, depth: int, b: int = B, c: int = C, device: str = "cpu"):
+    """(engine, tree, descent outputs, planted lanes, their terminal kinds):
+    a marked tree whose first two roots are unexpanded (the first a
+    finished game, so a terminal root), descended to ``depth`` (at depth 1
+    with a forced slot, so most lanes are clipped), then each of the next
+    lanes' leaf parent (the root's for a lane that stopped elsewhere)
+    given a state of :func:`planted_positions` and its leaf edge the move."""
+    eng, gen, tree = marked_tree(n, seed, b, c, device)
+    dev = tree.child_visit.device
+    won = position(n, {f"{chr(ord('a') + col)}1": "1" for col in range(n)}, to_move=1, ply=11)
+    for lane in (0, 1):
+        tree.child_action[lane, 0] = -1
+        tree.root_flag[lane] = 0
+    for pool, x in zip(tree.node_env, won):
+        pool[0, 0] = x.to(dev)
+    forced = forced_slot(tree, gen) if depth == 1 else None
+    descend = core.make_simulate(eng, stub_evaluator(eng), max_depth=depth).phases["descend"]
+    loop = descend(tree, core._betas(tree, 0.3), forced, depth == 1)
+    planted, kinds = [], []
+    for lane, (_, state, move, kind) in enumerate(planted_positions(n), start=2):
+        node, slot = int(loop["leaf_parent"][lane]), int(loop["leaf_slot"][lane])
+        for pool, x in zip(tree.node_env, state):
+            pool[lane, node] = x.to(dev)
+        tree.child_action[lane, node, slot] = ptn_to_action(n, move)
+        planted.append(lane)
+        kinds.append(kind)
+    return eng, tree, loop, planted, kinds
+
+
+@pytest.mark.parametrize("n,seed", [(4, 1), (5, 3), (6, 2), (8, 4)])
+@pytest.mark.parametrize("depth", [48, 1])
+def test_settle_plain_equals_the_batched_settle(n, seed, depth):
+    """Every output of ``settle`` (the evaluated states included) and every
+    tree array, on a tree with root-expanding lanes (one of them a finished
+    game), depth-clipped lanes at depth 1, and leaves planted with roads
+    (white's, black's, both, the opponent's), flat wins and draws on a full
+    board or an empty reserve, the reversible limit, crushes and swap-ply
+    placements; the batched engine gives each planted move its kind."""
+    eng, tree, loop, planted, kinds = planted_tree(n, seed, depth)
+    settle = core.make_simulate(eng, stub_evaluator(eng), max_depth=depth).phases["settle"]
+    ref, plain = clone(tree), clone(tree)
+    want = settle(ref, loop)
+    got = settle_plain(plain, loop, eng, depth)
+    assert_same(got["env_eval"]._asdict(), want["env_eval"]._asdict(), "evaluated states")
+    assert_same({k: v for k, v in got.items() if k != "env_eval"},
+                {k: v for k, v in want.items() if k != "env_eval"}, "outputs")
+    assert_same(plain, ref, "tree")
+    assert eng.terminal_kind(want["env_eval"])[planted].tolist() == kinds
+    assert bool(want["lane_root_expand"][:2].all()) and int(ref.root_flag[0]) == 2
+    if depth == 1:
+        assert bool(loop["active"].any()) and int(ref.overflow.sum()) > int(tree.overflow.sum())
+    else:
+        terminal_leaves = loop["stop_leaf"] & ~want["lane_eval_leaf"]
+        assert bool(terminal_leaves.any())
