@@ -28,17 +28,21 @@ order:
    not multiples of the kernel's tiles.  Every bit whose float64 dot
    satisfies |dot| > 1e-4 must match, and two launches must give
    identical words;
-4b. the search's descent, settle and backup kernels (``ops/tree.py``) at
-   the selfplay cells' shapes, [128 lanes, C=256] at 6x6 and [128, C=128]
-   at 5x5, on the tree of a Gumbel search (simple evaluator, k=64, budget
-   384, fresh openings): the descent with a forced slot under ``skip_root``
-   (as the search's simulations run it) and without, the settle of the
-   forced descent's lanes and the backup of its paths, every output and
-   tree array bit for bit equal to the batched loops' and ``settle``'s;
-   timed (device time, call time, the batched path's call time, and the
-   settle's device time too; the bytes bound: a level reads a node's row
-   of 8 arrays in the descent, of 4 in the backup; the settle reads a
-   state and a path and writes a state a lane);
+4b. the search's descent, settle, expansion and backup kernels
+   (``ops/tree.py``) at the selfplay cells' shapes, [128 lanes, C=256] at
+   6x6 and [128, C=128] at 5x5, on the tree of a Gumbel search (simple
+   evaluator, k=64, budget 384, fresh openings): the descent with a forced
+   slot under ``skip_root`` (as the search's simulations run it) and
+   without, the settle of the forced descent's lanes, their expansion
+   (the mask and store kernels around kernel A, on random bf16 logits)
+   and the backup of its paths, every output and tree array bit for bit
+   equal to the batched loops', ``settle``'s and ``apply_eval``'s; timed
+   (device time, call time, the batched path's call time, and the
+   settle's and ``apply_eval``'s device time too; the bytes bound: a level
+   reads a node's row of 8 arrays in the descent, of 4 in the backup; the
+   settle reads a state and a path and writes a state a lane; the mask
+   reads the logits and writes kernel A's float32 input; the store reads
+   kernel A's children and writes 9 child rows and a state a lane);
 4c. the evaluator's convolution kernel (``ops/conv.py``) at the selfplay
    cells' tower layer, [128, 6x6, 256 -> 256] and [128, 5x5, 256 -> 256]
    with the residual: the float32 sum within 1e-5 of sum |x*w| of float64,
@@ -327,8 +331,9 @@ order:
    (``learner_allreduce_ms``), on phase 17 (``jax_checkpoint_launches``,
    ``pool_tools_launches``), and on phase 18b
    (``topk_ab_launches_per_move``) with each impl's µs per call at
-   f32[128, 9036] (``topk_impls_us_per_call``); then the descent, settle
-   and backup kernels (``tree_descend``, ``tree_settle``, ``tree_backup``) with their launches
+   f32[128, 9036] (``topk_impls_us_per_call``); then the descent, settle,
+   expansion and backup kernels (``tree_descend``, ``tree_settle``,
+   ``expand_mask``, ``expand_store``, ``tree_backup``) with their launches
    on the move program, the selfplay driver, reanalyze and the serve
    path, read from the counters in this run, and phase 4b's rows at
    [128, C=256] (``at_6x6``) and [128, C=128] (``at_5x5``); last the
@@ -662,8 +667,9 @@ def clone_tree(tree, device=None):
 
 
 def check_tree_kernels(dev) -> dict:
-    """4b: the descent and backup kernels against the batched loops on a
-    searched tree at each selfplay cell's shape, and their times."""
+    """4b: the descent, settle, expansion and backup kernels against the
+    batched loops on a searched tree at each selfplay cell's shape, and
+    their times."""
     import torch
 
     from takzero_torch.ops import tree as tree_ops
@@ -729,6 +735,28 @@ def check_tree_kernels(dev) -> dict:
             if not torch.equal(u, v):
                 raise AssertionError(f"settle kernel {n}x{n}: {name} differs from the batched settle's")
 
+        # The expansion of the settled lanes (root, leaf and terminal ones),
+        # scratch row included, from random bf16 logits.
+        rec_settled = got
+        x_logits = (torch.randn(b, eng.num_actions, generator=gen, device=dev) * 2).to(torch.bfloat16)
+        x_v = torch.rand(b, generator=gen, device=dev) * 2 - 1
+        x_var = torch.rand(b, generator=gen, device=dev) * 0.1
+        expanded, batched = clone_tree(kern), clone_tree(kern)
+        phases["apply_eval"](expanded, rec_settled, x_logits, x_v, x_var)
+        with tree_loops():
+            phases["apply_eval"](batched, rec_settled, x_logits, x_v, x_var)
+        torch.cuda.synchronize()
+        pairs = [(f"tree.{k}", x, getattr(batched, k)) for k, x in expanded._asdict().items() if k != "node_env"]
+        pairs += [(f"node_env.{k}", x, y) for (k, x), y in zip(expanded.node_env._asdict().items(), batched.node_env)]
+        for name, u, v in pairs:
+            if u.dtype == torch.float32:
+                u, v = u.view(torch.int32), v.view(torch.int32)
+            if not torch.equal(u, v):
+                raise AssertionError(f"expansion kernels {n}x{n}: {name} differs from the batched apply_eval's")
+        masked, legal = tree_ops.expand_mask(rec_settled["env_eval"], x_logits, eng)
+        top_vals, top_idx = core._kernel_a(masked, c)
+        stored = clone_tree(kern)
+
         levels = int(torch.where(loop_state["active"], depth, loop_state["length"]).sum())
         up = int(rec["length"].clamp(min=1).sub(1).sum())  # levels j >= 1 under skip_root
         timed, rec_out = clone_tree(tree), core._descent_buffers(b, depth, dev)
@@ -738,6 +766,7 @@ def check_tree_kernels(dev) -> dict:
         # of counters), reads its path and 64 bytes of the descent's
         # outputs, writes 24 of its own, and adds a visit on each edge.
         state_bytes = 16 * n * n + 28
+        actions = eng.num_actions
         walks = {
             "descend": (lambda: tree_ops.tree_descend(timed, beta, slot, True, depth, rec_out),
                         lambda: phases["descend"](timed, beta, slot, True), levels,
@@ -745,6 +774,15 @@ def check_tree_kernels(dev) -> dict:
             "settle": (lambda: tree_ops.tree_settle(settled, loop_state, eng, depth),
                        lambda: phases["settle"](settled, loop_state), int(loop_state["length"].sum()),
                        b * (2 * state_bytes + depth * 8 + 64 + 24) + 8 * int(loop_state["length"].sum())),
+            # A lane's mask reads its state and its bf16 logits and writes
+            # float32 logits; its store reads kernel A's children and its
+            # state and writes 9 child rows, a state and a few scalars.
+            "expand_mask": (lambda: tree_ops.expand_mask(rec_settled["env_eval"], x_logits, eng),
+                            lambda: phases["apply_eval"](stored, rec_settled, x_logits, x_v, x_var), b,
+                            b * (state_bytes + 6 * actions + 4 * legal.shape[1])),
+            "expand_store": (lambda: tree_ops.expand_store(stored, rec_settled, top_vals, top_idx, legal, x_v, x_var),
+                             lambda: phases["apply_eval"](stored, rec_settled, x_logits, x_v, x_var), b,
+                             b * (8 * c + 36 * c + 2 * state_bytes + 64)),
             "backup": (lambda: tree_ops.tree_backup(timed, rec, v_net, var_net, True),
                        lambda: phases["backward"](timed, rec, v_net, var_net, True), up, up * 4 * 4 * c),
         }
@@ -752,7 +790,7 @@ def check_tree_kernels(dev) -> dict:
             ms, how = device_ms(fn)
             with tree_loops():
                 loops_ms = call_ms(loops_fn, iters=20, warmup=3)
-                extra = {"loops_device_ms": device_ms(loops_fn)[0]} if name == "settle" else {}
+                extra = {"loops_device_ms": device_ms(loops_fn)[0]} if name not in ("descend", "backup") else {}
             row = dict(shape=[b, c], levels=levels_of, kernel_ms=ms, call_ms=call_ms(fn), loops_call_ms=loops_ms,
                        **extra, bytes=nbytes, timing={"kernel": how})
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 0)
@@ -1457,8 +1495,10 @@ def per_evaluation(cfg) -> dict:
 
 def per_simulation(cfg) -> dict:
     """The launches of one simulation on a CUDA tree: kernel A, the descent,
-    the settle and the backup once each, and one evaluation."""
-    return {"exact_top_k_unsorted": 1, "tree_descend": 1, "tree_settle": 1, "tree_backup": 1,
+    the settle, the expansion's two kernels and the backup once each, and
+    one evaluation."""
+    return {"exact_top_k_unsorted": 1, "tree_descend": 1, "tree_settle": 1, "expand_mask": 1, "expand_store": 1,
+            "tree_backup": 1,
             **per_evaluation(cfg)}
 
 
@@ -1867,10 +1907,12 @@ def run_tei(engine_, tps: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     chunks = len(infos1) + len(infos2) + len(infos3)
-    # A chunk: one plain simulation (a descent, a settle, a backup) and the
-    # serve chunk, whose wavefront has its own loops; an evaluation each.
+    # A chunk: one plain simulation (a descent, a settle, an expansion, a
+    # backup) and the serve chunk, whose wavefront has its own loops; an
+    # evaluation each.
     want = {name: 2 * n for name, n in per_simulation(engine_.cfg).items()}
-    launches = _expect_launches("TEI", {**want, "tree_descend": 1, "tree_settle": 1, "tree_backup": 1}, chunks)
+    launches = _expect_launches("TEI", {**want, "tree_descend": 1, "tree_settle": 1, "expand_mask": 1,
+                                        "expand_store": 1, "tree_backup": 1}, chunks)
     out = {"phase": "serve: TEI session", "net": "net6_simhash (16x256 bf16, SimHash 2^32)", "card": card_line(),
            "chunks": chunks, "sims_per_chunk": SIM_CHUNK, "bestmoves": [best1, best2, best3],
            "reused_root_visits": reused, "child_visits_before": child_visits,
@@ -1917,11 +1959,12 @@ def run_analysis(engine_, tps: str, dev) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
-    # One simulation, then simulate_batch: a descent and a settle a
-    # simulation, and a backup of its known stops and one of its leaves a
-    # batched one; two evaluations.
+    # One simulation, then simulate_batch: a descent, a settle and an
+    # expansion a simulation, and a backup of its known stops and one of its
+    # leaves a batched one; two evaluations.
     want = {"exact_top_k_unsorted": analysis.SIM_CHUNK, "simhash_pack": 2, "tree_descend": analysis.SIM_CHUNK,
-            "tree_settle": analysis.SIM_CHUNK, "tree_backup": 2 * analysis.SIM_CHUNK - 1,
+            "tree_settle": analysis.SIM_CHUNK, "expand_mask": analysis.SIM_CHUNK,
+            "expand_store": analysis.SIM_CHUNK, "tree_backup": 2 * analysis.SIM_CHUNK - 1,
             "conv3x3": 2 * per_evaluation(cfg)["conv3x3"]}
     if launches != want:
         raise AssertionError(f"analysis chunk: launches {launches}, expected {want}")
@@ -4297,14 +4340,18 @@ def main() -> int:
         # Phase 18b: one move under each top-k impl, read from the counters.
         entry["topk_ab_launches_per_move"] = {k: v["launches"][name] for k, v in topk_ab["moves"]["impls"].items()}
     kernels[0]["topk_impls_us_per_call"] = topk_ab["impls"]["us_per_call"]
-    # The descent, settle and backup kernels: their launches on the paths
-    # that check them, read from the counters in this run, and phase 4b.
-    for name, walk, replaces in (("tree_descend", "descend", "takzero_tpu/search/core.py:101 (a batched loop)"),
-                                 ("tree_settle", "settle", "takzero_tpu/search/core.py:101 (forward's fused tail)"),
-                                 ("tree_backup", "backup", "takzero_tpu/search/core.py:430 (a batched loop)")):
+    # The descent, settle, expansion and backup kernels: their launches on
+    # the paths that check them, read from the counters in this run, and
+    # phase 4b.
+    apply_eval = "takzero_tpu/search/core.py:305 (apply_eval with legal_mask, fused)"
+    for name, walk, source, replaces in (
+            ("tree_descend", "descend", "tree", "takzero_tpu/search/core.py:101 (a batched loop)"),
+            ("tree_settle", "settle", "settle", "takzero_tpu/search/core.py:101 (forward's fused tail)"),
+            ("expand_mask", "expand_mask", "expand", apply_eval),
+            ("expand_store", "expand_store", "expand", apply_eval),
+            ("tree_backup", "backup", "tree", "takzero_tpu/search/core.py:430 (a batched loop)")):
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"takzero_torch/csrc/{'settle' if walk == 'settle' else 'tree'}.cu", "replaces": replaces,
+            "name": name, "route": "cuda", "source": f"takzero_torch/csrc/{source}.cu", "replaces": replaces,
             "checked": True, "launches": launches[name],
             "selfplay_driver_launches": loop["launches"]["selfplay_driver"][name],
             "reanalyze_launches": loop["launches"]["reanalyze"][name],

@@ -40,6 +40,8 @@ KERNELS = {
     "tree": ("tree.cu", {"tree_descend_launch": ("tree_descend", [_P] * 26 + [_I] * 6 + [_P]),
                          "tree_backup_launch": ("tree_backup", [_P] * 22 + [_I] * 6 + [_P])}),
     "settle": ("settle.cu", {"tree_settle_launch": ("tree_settle", [_P] + [_I] * 7 + [_P])}),
+    "expand": ("expand.cu", {"expand_mask_launch": ("expand_mask", [_P] + [_I] * 4 + [ctypes.c_longlong, _I, _P]),
+                             "expand_store_launch": ("expand_store", [_P] + [_I] * 7 + [_P])}),
     "conv": ("conv.cu", {"conv3x3_launch": ("conv3x3", [_P] * 6 + [_I] * 10 + [_P])}),
 }
 

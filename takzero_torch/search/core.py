@@ -15,8 +15,9 @@ expansions and leaf backups.
 On a CUDA tree the two data-dependent ``while_loop``s of the JAX program,
 the descent and the backup, are hand-written kernels that walk each lane's
 path with no host read, and with a Tak engine the forward's tail
-(``settle``) is a third (``ops/tree.py``, ``csrc/tree.cu``,
-``csrc/settle.cu``; their per-lane algorithm in plain torch is
+(``settle``) is a third and ``apply_eval`` two more around the top-k
+(``ops/tree.py``, ``csrc/tree.cu``, ``csrc/settle.cu``,
+``csrc/expand.cu``; their per-lane algorithm in plain torch is
 ``search/lanewise.py``).  On the CPU they are
 Python loops of batched operators with one host check per level, which
 keep JAX's semantics exactly: the descent runs while ``depth < max_depth
@@ -26,8 +27,8 @@ Each read is a ``sync`` span, and each phase of a simulation a
 ``search.*`` span (``utils/profile.py``).
 
 The rest of a simulation has fixed shapes and no host read: the forward
-tail (``settle``; batched operators on the CPU and for other engines), the
-evaluator and ``apply_eval``.  So on a CUDA tree a
+tail (``settle``), the evaluator and ``apply_eval`` (batched operators on
+the CPU and for other engines).  So on a CUDA tree a
 whole simulation has none, and within one search
 (``simulate.search_scope``, which the Gumbel search opens) its phases are
 captured into CUDA graphs in the second simulation and replayed in every
@@ -188,11 +189,12 @@ def _tree_kernels(tree: Tree) -> bool:
 
 
 def _settle_kernel(tree: Tree, eng) -> bool:
-    """Whether ``settle`` runs as ``ops/tree.py``'s settle kernel: on a tree
-    whose descent and backup are kernels (:func:`_tree_kernels`), searched
-    with a :class:`TakEngine`, whose rules the kernel holds.  Other engines
-    keep the batched operators on any device.  Looked up at each call, so
-    that a test may hold the batched ``settle`` on the card."""
+    """Whether ``settle`` and ``apply_eval`` run as ``ops/tree.py``'s settle
+    and expansion kernels: on a tree whose descent and backup are kernels
+    (:func:`_tree_kernels`), searched with a :class:`TakEngine`, whose rules
+    the kernels hold.  Other engines keep the batched operators on any
+    device.  Looked up at each call, so that a test may hold the batched
+    ``settle`` and ``apply_eval`` on the card."""
     return _tree_kernels(tree) and isinstance(eng, TakEngine)
 
 
@@ -384,7 +386,16 @@ def make_kernels(eng: TakEngine, evaluator: Callable, max_depth: int = 48, topk:
         return settle(tree, descend(tree, beta, forced_slot, skip_root, out))
 
     def apply_eval(tree: Tree, rec, logits, v_net, var_net):
+        """The evaluation's statistics and the guarded expansion of every
+        lane's leaf (or root): the two expansion kernels around the top-k
+        on a CUDA tree searched with a Tak engine (:func:`_settle_kernel`),
+        else batched operators.  Fixed shapes and no host read."""
         b, m, c = tree.child_visit.shape
+        if _settle_kernel(tree, eng):
+            masked, legal = _tree.expand_mask(rec["env_eval"], logits, eng)
+            top_vals, top_idx = topk_fn(masked, c)
+            _tree.expand_store(tree, rec, top_vals, top_idx, legal, v_net, var_net)
+            return tree
         bar = torch.arange(b, device=tree.child_visit.device)
         leaf_parent, leaf_slot = rec["leaf_parent"], rec["leaf_slot"]
         lane_eval_leaf = rec["lane_eval_leaf"]

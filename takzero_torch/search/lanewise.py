@@ -1,4 +1,4 @@
-"""The descent, settle and backup kernels' per-lane algorithm, in plain torch.
+"""The search kernels' per-lane algorithm, in plain torch.
 
 ``ops/tree.py``'s kernels give each lane of the batch a thread block and
 walk its path alone: each lane is an independent tree.  ``descend_plain``
@@ -9,15 +9,21 @@ values, so that the three agree bit for bit on either device.
 ``settle_plain`` states the settle kernel's: the leaf's Tak step square by
 square and the road flood on bitboards, in Python integers with torch's
 int64 shifts, so that it equals the batched ``settle`` (``TakEngine.step``
-and ``terminal_kind``) bit for bit.  The CPU tests hold the plain
-statements to the batched loops, the card tests the kernels to both.  They
-read the device at every level: a check, not a path of the program.
+and ``terminal_kind``) bit for bit.  ``apply_eval_plain`` states the two
+expansion kernels' around the top-k: a lane's legal mask from runs of
+passable squares, its statistics, and its children's priors summed in the
+order of torch's CUDA reduction (:func:`softmax_sum`).  The CPU tests hold
+the plain statements to the batched loops, the card tests the kernels to
+both.  They read the device at every level: a check, not a path of the
+program.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.tree import reduce_layout
+from ..tak.moves import DIR_DELTAS, decode_pattern
 from ..tak.state import TakState
 from . import eval as ev
 from .core import NEG, _descent_buffers
@@ -285,3 +291,165 @@ def settle_plain(tree: Tree, loop: dict, eng, max_depth: int) -> dict:
     return dict(path_node=loop["path_node"], path_slot=loop["path_slot"], **out,
                 lane_root_expand=loop["lane_root_expand"], leaf_parent=loop["leaf_parent"],
                 leaf_slot=loop["leaf_slot"], env_eval=env_eval)
+
+
+def legal_mask_plain(eng, state: TakState) -> torch.Tensor:
+    """``TakEngine.legal_mask`` of one state (fields without a batch
+    dimension), as the mask kernel decides it: bool[num_actions].  A
+    spread's drop pattern gives its direction, its ``k`` drop squares, its
+    ``carry`` and its ``last`` drop (moves.py ``decode_pattern``); it is
+    legal where the mover controls the square outside the swap plies,
+    ``carry <= min(height, n)``, the run of passable squares (empty or flat)
+    from the square's neighbour covers the first ``k - 1`` drops, and the
+    ``k``-th square is passable, or is a wall that a lone capstone crushes
+    (``last == 1``)."""
+    n, s = eng.n, eng.n * eng.n
+    height, owner, tops = (x.tolist() for x in state[:3])
+    me, swap = int(state.to_move), int(state.ply) < 2
+    stones, caps = state.reserves[me].tolist()
+    color = [_shr(owner[q], max(height[q] - 1, 0)) & 1 for q in range(s)]
+    legal = [tops[q] == 0 and (swap or stones > 0) for q in range(s)]
+    legal += [tops[q] == 0 and not swap and stones > 0 for q in range(s)]
+    legal += [tops[q] == 0 and not swap and caps > 0 for q in range(s)]
+    directions = DIR_DELTAS.tolist()
+    run = [[0] * s for _ in directions]  # passable squares in a row from q's neighbour
+    for d, (dr, dc) in enumerate(directions):
+        for q in range(s):
+            r, c = divmod(q, n)
+            while 0 <= r + dr < n and 0 <= c + dc < n and tops[(r + dr) * n + c + dc] <= 1:
+                r, c = r + dr, c + dc
+                run[d][q] += 1
+    patterns = 2**n - 2
+    for si in range(4 * patterns):
+        d, mask = divmod(si, patterns)
+        drops = decode_pattern(mask + 1, n)
+        k, carry, last = len(drops), sum(drops), drops[-1]
+        dr, dc = directions[d]
+        for q in range(s):
+            ok = tops[q] > 0 and color[q] == me and not swap and carry <= min(height[q], n) and run[d][q] >= k - 1
+            if ok and run[d][q] < k:  # the k-th square: off the board, a wall or a capstone
+                r, c = divmod(q, n)
+                r, c = r + k * dr, c + k * dc
+                ok = last == 1 and tops[q] == 3 and 0 <= r < n and 0 <= c < n and tops[r * n + c] == 2
+            legal.append(ok)
+    return torch.tensor(legal, device=state.tops.device)
+
+
+def softmax_sum(ex: torch.Tensor, rows: int, row: int) -> torch.Tensor:
+    """The sum of ``ex`` (float32 [c], non-negative) in the order torch's
+    CUDA reduction sums row ``row`` of a contiguous [rows, c] tensor whose
+    first row lies on a 16-byte boundary (:func:`reduce_layout`).  Thread
+    ``t`` of the row's ``width`` keeps four accumulators: vectorised, term
+    ``4 * j + i`` of its vectors ``t, t + width, ...`` goes to accumulator
+    ``i`` (where the row starts off a 16-byte boundary, threads ``shift`` to
+    3 first take its leading ``4 - shift`` terms; the ``c % 4`` terms left
+    over go one a thread to accumulator 0); else terms ``t + (4 j + i)
+    width`` to accumulator ``i`` while a thread has four, then one each.  A
+    thread adds its accumulators in order, and the row's partials are
+    added pairwise, halving: ``p[t] + p[t + width / 2]``."""
+    c = ex.shape[0]
+    width, vectorised = reduce_layout(rows, c)
+    zero = ex.new_zeros(())
+    partial = []
+    for t in range(width):
+        acc = [zero] * 4
+        if vectorised:
+            base, end, shift = 0, c, row * c % 4
+            if shift:
+                if shift <= t < 4:
+                    acc[0] = zero + ex[t - shift]
+                base, end = 4 - shift, c - 4 + shift
+            j = t
+            while 4 * j + 3 < end:
+                acc = [acc[i] + ex[base + 4 * j + i] for i in range(4)]
+                j += width
+            if end - end % 4 + t < end:
+                acc[0] = acc[0] + ex[base + end - end % 4 + t]
+        else:
+            j = t
+            while j + 3 * width < c:
+                acc = [acc[i] + ex[j + i * width] for i in range(4)]
+                j += 4 * width
+            for i in range(4):
+                if j >= c:
+                    break
+                acc[i] = acc[i] + ex[j]
+                j += width
+        partial.append(((acc[0] + acc[1]) + acc[2]) + acc[3])
+    while len(partial) > 1:
+        half = len(partial) // 2
+        partial = [partial[t] + partial[t + half] for t in range(half)]
+    return partial[0]
+
+
+def apply_eval_plain(tree: Tree, rec: dict, logits, v_net, var_net, eng, topk_fn) -> Tree:
+    """``search/core.py`` ``apply_eval`` for a Tak engine as the expansion
+    kernels do it, one lane at a time around ``topk_fn``: each lane's legal
+    mask (:func:`legal_mask_plain`) and masked logits; after the top-k, the
+    leaf's and the root's statistics, the children's priors (max, ``exp``,
+    the sum in torch's CUDA order, :func:`softmax_sum`, one division), and
+    the guarded expansion's stores into the allocated row (the root's where
+    the lane expands its root; the scratch row where it expands nothing).
+    Updates ``tree`` in place."""
+    b, m, c = tree.child_visit.shape
+    capacity = m - 1
+    env = rec["env_eval"]
+    v_net, sd_net = v_net.float(), torch.sqrt(var_net.float())
+    masked = torch.empty((b, eng.num_actions), dtype=torch.float32, device=tree.child_visit.device)
+    n_legal = []
+    for lane in range(b):
+        legal = legal_mask_plain(eng, env.map(lambda x: x[lane]))
+        masked[lane] = torch.where(legal, logits[lane].float(), NEG)
+        n_legal.append(int(legal.sum()))
+    top_vals, top_idx = topk_fn(masked, c)
+    flags = {k: rec[k].tolist() for k in ("lane_eval_leaf", "lane_eval_root", "lane_root_expand", "leaf_parent",
+                                           "leaf_slot")}
+    for lane in range(b):
+        parent, slot = flags["leaf_parent"][lane], flags["leaf_slot"][lane]
+        eval_leaf, eval_root = flags["lane_eval_leaf"][lane], flags["lane_eval_root"][lane]
+        root_expand = flags["lane_root_expand"][lane]
+        n_leaf = tree.child_visit[lane, parent, slot].float().clamp(min=1.0)
+        old_v, old_s = tree.child_value[lane, parent, slot].clone(), tree.child_std[lane, parent, slot].clone()
+        leaf_v = old_v + (v_net[lane] - old_v) / n_leaf
+        leaf_s = old_s + (sd_net[lane] - old_s) / n_leaf
+        rn = tree.root_visit[lane].float().clamp(min=1.0)
+        root_v = tree.root_value[lane] + (v_net[lane] - tree.root_value[lane]) / rn
+        root_s = tree.root_std[lane] + (sd_net[lane] - tree.root_std[lane]) / rn
+        tree.child_value[lane, parent if eval_leaf else capacity, slot] = leaf_v
+        tree.child_std[lane, parent if eval_leaf else capacity, slot] = leaf_s
+        if eval_root:
+            tree.root_value[lane], tree.root_std[lane] = root_v, root_s
+        v_after, s_after = (root_v, root_s) if eval_root else (leaf_v, leaf_s)
+
+        vals = top_vals[lane]
+        valid = vals > NEG / 2
+        mx = torch.where(valid, vals, -torch.inf).max()
+        ex = torch.where(valid, torch.exp(vals - mx), 0.0)
+        prob = ex / softmax_sum(ex, b, lane).clamp(min=1e-30)
+
+        already = int(tree.child_node[lane, parent, slot]) >= 0 and not root_expand
+        ptr = int(tree.alloc_ptr[lane])
+        can_expand = root_expand or ptr < int(tree.free_count[lane])
+        evaluated = eval_leaf or eval_root
+        expanding = evaluated and can_expand and not already
+        node = (0 if root_expand else int(tree.free_rows[lane, min(max(ptr, 0), m - 1)])) if expanding else capacity
+        tree.child_action[lane, node] = torch.where(valid, top_idx[lane], -1)
+        tree.child_logit[lane, node] = torch.where(valid, vals, 0.0)
+        tree.child_prob[lane, node] = prob
+        for name in ("child_visit", "child_flag", "child_ply"):
+            getattr(tree, name)[lane, node] = 0
+        tree.child_value[lane, node] = -v_after
+        tree.child_std[lane, node] = s_after
+        tree.child_node[lane, node] = -1
+        leaf_expand = expanding and eval_leaf
+        tree.node_parent[lane, node] = parent if leaf_expand else -1
+        tree.node_slot[lane, node] = slot if leaf_expand else -1
+        tree.node_incomplete[lane, node] = n_legal[lane] > c
+        for pool, x in zip(tree.node_env, env):
+            pool[lane, node] = x[lane]
+        tree.child_node[lane, parent if leaf_expand else capacity, slot] = node
+        tree.node_count[lane] += int(leaf_expand)
+        tree.alloc_ptr[lane] += int(leaf_expand)
+        tree.node_live[lane, node] = expanding
+        tree.overflow[lane] += int(evaluated and not can_expand)
+    return tree

@@ -379,13 +379,48 @@ def test_settle_kernel_equals_the_batched_settle_and_the_plain(cuda, monkeypatch
         assert_same(_on_cpu(plain), _on_cpu(ref), where + " (plain): tree")
 
 
+@pytest.mark.parametrize("n,c,seed", [(6, 256, 12), (5, 128, 10), (4, 64, 8), (8, 64, 4)])
+def test_expansion_kernels_equal_the_plain_and_the_batched_apply_eval(cuda, monkeypatch, n, c, seed):
+    """The mask and store kernels around kernel A at 32 lanes on a settled
+    planted tree (``expansion_case``: lanes that expand their root,
+    evaluate a leaf, evaluate nothing, find their leaf already expanded or
+    their allocator full), from float32, bf16 and row-broadcast logits:
+    every tree array, the priors and the scratch row included, bit for bit
+    equal to ``apply_eval_plain`` and to the batched ``apply_eval`` on the
+    card; one launch of each a call."""
+    from takzero_torch.search import core
+    from takzero_torch.search.lanewise import apply_eval_plain
+    from test_torch_lanewise import assert_same, clone, expansion_case, stub_evaluator
+
+    eng, tree, rec, logits, v_net, var_net = _with_loops(monkeypatch, expansion_case, n, seed, c, 32, cuda)
+    apply_eval = core.make_simulate(eng, stub_evaluator(eng)).phases["apply_eval"]
+    for kind, x in (("float32", logits), ("bf16", logits.to(torch.bfloat16)),
+                    ("broadcast", logits[:1].expand_as(logits))):
+        where = f"expansion {n}x{n} C={c}, {kind} logits"
+        kern, ref, plain = clone(tree), clone(tree), clone(tree)
+        before = launch_counts()
+        apply_eval(kern, rec, x, v_net, var_net)
+        assert {k: launch_counts()[k] - before[k] for k in ("expand_mask", "expand_store")} == \
+            {"expand_mask": 1, "expand_store": 1}, where
+        with monkeypatch.context() as m:
+            m.setattr(core, "_settle_kernel", lambda tree, eng: False)
+            apply_eval(ref, rec, x, v_net, var_net)
+        apply_eval_plain(plain, rec, x, v_net, var_net, eng, core._kernel_a)
+        torch.cuda.synchronize()
+        assert_same(_on_cpu(kern), _on_cpu(ref), where)
+        assert_same(_on_cpu(plain), _on_cpu(ref), where + " (plain)")
+    assert int(ref.overflow.sum()) > int(tree.overflow.sum())
+    assert bool(ref.node_incomplete.any()) and not bool(ref.node_incomplete.all())
+
+
 @pytest.mark.parametrize("n,c", [(6, 256), (5, 128)])
 def test_gumbel_search_with_the_settle_kernel_equals_the_batched_settle(cuda, monkeypatch, n, c):
     """Whole graphed Gumbel searches (32 games from positions 30-69 plies
     into random playouts, k=16, budget 64, the simple evaluator) with the
-    settle kernel leave every tree array and chosen slot equal to the same
-    searches with ``settle`` held to its batched operators, whose descent
-    and backup are still the kernels; the kernel launches once a
+    settle kernel and the expansion kernels leave every tree array and
+    chosen slot equal to the same searches with ``settle`` and
+    ``apply_eval`` held to their batched operators, whose descent and
+    backup are still the kernels; each of the three kernels launches once a
     simulation, graph replays included, and not at all when held."""
     from takzero_torch.search import core
     from takzero_torch.search.agents import simple_evaluator
@@ -409,8 +444,10 @@ def test_gumbel_search_with_the_settle_kernel_equals_the_batched_settle(cuda, mo
             before = launch_counts()
             tree, slot = search(init_tree(eng, envs, budget + 8, c), gumbel, betas)
             torch.cuda.synchronize()
-            counts = {name: launch_counts()[name] - before[name] for name in ("tree_descend", "tree_settle")}
-        assert counts == {"tree_descend": budget + 1, "tree_settle": budget + 1 if kernel else 0}
+            counts = {name: launch_counts()[name] - before[name]
+                      for name in ("tree_descend", "tree_settle", "expand_mask", "expand_store")}
+        held = budget + 1 if kernel else 0
+        assert counts == {"tree_descend": budget + 1, "tree_settle": held, "expand_mask": held, "expand_store": held}
         out[kernel] = tree, slot
     (tree, slot), (ref, ref_slot) = out[True], out[False]
     assert torch.equal(slot, ref_slot)
@@ -451,7 +488,7 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
     C=256 and C=128 (32 games, k=16, budget 64; a 32x2 bf16 net with SimHash over a half-set
     2^20 seen-set, or the MLP RND; or the simple evaluator, which runs
     eagerly between the graphs).  The counters of kernels A and B and of
-    the three tree kernels read one launch a simulation (B's with the SimHash
+    the five tree kernels read one launch a simulation (B's with the SimHash
     net), the convolution kernel's 2 blocks + 2 (with the net, whose kernel
     launches are inside the captured evaluator); the search engages 1
     eager, 1 captured and budget - 1 replayed simulations; and its graphs
@@ -495,7 +532,8 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
         middles = dict(graphs.MIDDLES)
         tree, slot = search(init_tree(eng, envs, budget + 8, c), gumbel, betas)
         torch.cuda.synchronize()
-        names = ("exact_top_k_unsorted", "simhash_pack", "tree_descend", "tree_settle", "tree_backup", "conv3x3")
+        names = ("exact_top_k_unsorted", "simhash_pack", "tree_descend", "tree_settle", "expand_mask", "expand_store",
+                 "tree_backup", "conv3x3")
         return tree, slot, [launch_counts()[k] - launches[k] for k in names], \
             {key: graphs.MIDDLES[key] - middles[key] for key in middles}
 
@@ -506,7 +544,7 @@ def test_graphed_gumbel_search_equals_eager(cuda, monkeypatch, n, novelty, evalu
     assert torch.cuda.memory_allocated(cuda) == level
     graphed = run()
     net = evaluator == "net"  # whose convolutions are the kernel's, 2 blocks + 2 an evaluation
-    assert launches == [budget + 1, budget + 1 if novelty == "simhash" and net else 0,
+    assert launches == [budget + 1, budget + 1 if novelty == "simhash" and net else 0, budget + 1, budget + 1,
                         budget + 1, budget + 1, budget + 1, (2 * cfg.blocks + 2) * (budget + 1) if net else 0]
     assert middles == {"eager": 1, "captured": 1, "replayed": budget - 1}
 

@@ -126,11 +126,12 @@ def test_topk_wrapper_dispatch_on_cpu():
 
 def test_every_kernel_launch_is_counted_in_the_registry(monkeypatch):
     """Each launch symbol of ``_build.KERNELS`` counts one launch under one
-    of the registry's six names when ``_build.launch`` calls it (and none
+    of the registry's eight names when ``_build.launch`` calls it (and none
     when it fails), some wrapper in ``ops/`` launches it through
     ``_build.launch``, and no module of the port keeps a counter of its
     own: a new kernel cannot go uncounted."""
-    names = {"exact_top_k_unsorted", "simhash_pack", "tree_descend", "tree_settle", "tree_backup", "conv3x3"}
+    names = {"exact_top_k_unsorted", "simhash_pack", "tree_descend", "tree_settle", "expand_mask", "expand_store",
+             "tree_backup", "conv3x3"}
     assert set(launch_counts()) == names
     errors = {}
 

@@ -9,8 +9,13 @@ parity tests hold) bit for bit, on trees built by real Gumbel searches with
 a stub evaluator at 4x4 and 6x6 (the settle also at 5x5 and 8x8, its leaves
 planted with positions that end the game in each way the rules know), then
 marked with proven wins, losses and draws, incomplete nodes and nodes whose
-valid children are all proven wins.  The card's side (the kernels equal to
-both) is ``tests/test_torch_cuda.py``.
+valid children are all proven wins.  ``apply_eval_plain`` must equal the
+batched ``apply_eval`` on settled planted trees with an already-expanded
+leaf and a full allocator, every array bit for bit but the priors, which
+it sums in the order of torch's CUDA reduction (the CPU's sums in another:
+within 2 ulp); ``legal_mask_plain`` must equal the engine's mask at 3x3 to
+8x8.  The card's side (the kernels equal to both) is
+``tests/test_torch_cuda.py``.
 
 Batch and slots: 16 lanes and C=64.  The CPU's ``torch.pow`` (the
 discount of a proven eval) rounds its vectorised body and its scalar tail
@@ -27,7 +32,7 @@ import pytest
 import torch
 
 from takzero_torch.search import core, eval as ev, gumbel
-from takzero_torch.search.lanewise import backup_plain, descend_plain, settle_plain
+from takzero_torch.search.lanewise import apply_eval_plain, backup_plain, descend_plain, legal_mask_plain, settle_plain
 from takzero_torch.search.agents import simple_evaluator
 from takzero_torch.search.tree import init_tree
 from takzero_torch.selfplay import gumbel_noise
@@ -311,3 +316,85 @@ def test_settle_plain_equals_the_batched_settle(n, seed, depth):
     else:
         terminal_leaves = loop["stop_leaf"] & ~want["lane_eval_leaf"]
         assert bool(terminal_leaves.any())
+
+
+def mask_positions(n: int) -> list:
+    """(what, state): the placements' and the spreads' limits of the legal
+    mask, and positions of random playouts."""
+    stones, caps = DEFAULT_RESERVES[n]
+    tall, last = "12" * (n // 2 + 2), chr(ord("a") + n - 1)
+    planted = [
+        ("swap ply 0", position(n, {}, ply=0)),
+        ("swap ply 1", position(n, {"a1": "2"}, to_move=1, ply=1)),
+        ("no stones left", position(n, {"b2": "1", "c2": "2"}, reserves=[[0, caps], [stones, caps]])),
+        ("no capstone left", position(n, {"b2": "1"}, reserves=[[stones - 3, 0], [stones, 1]])),
+        ("carries at the height and n limits", position(n, {"b2": tall, "a1": "2" * n, "c3": "21"})),
+        ("blocked spreads", position(n, {"b2": "21", "c2": "2S", "b3": "1C", "a2": "11", "b1": "2S"})),
+        ("a capstone crushes a wall", position(n, {"b2": "1C", "c2": "2S", "b3": "2S", "a2": "1S"})),
+        ("a lone capstone crushes past a flat", position(n, {"a1": "21C", "b1": "2", "c1": "1S"})),
+        ("a wall at the board's edge", position(n, {f"{last}2": "1C", f"{last}3": "2S", "a1": "1C"})),
+    ]
+    gen = torch.Generator().manual_seed(n)
+    envs = roots(engine(n), gen, 6, plies=(n, 4 * n))
+    return planted + [(f"playout {i}", envs.map(lambda x: x[i])) for i in range(6)]
+
+
+@pytest.mark.parametrize("n", [3, 4, 5, 6, 7, 8])
+def test_legal_mask_plain_equals_the_engine(n):
+    """The mask kernel's decision, one state at a time, equals
+    ``TakEngine.legal_mask``: swap plies, empty stone and capstone
+    reserves, carries at the height and ``n`` limits, spreads blocked by
+    walls, capstones and the edge, capstones crushing walls (alone, and
+    after dropping on a flat), and random playouts."""
+    eng = engine(n, half_komi=4)
+    positions = mask_positions(n)
+    want = eng.legal_mask(TakState(*(torch.stack(x) for x in zip(*(state for _, state in positions)))))
+    for (what, state), row in zip(positions, want):
+        assert torch.equal(legal_mask_plain(eng, state), row), what
+    assert bool(want[:, 3 * n * n:].any())  # spreads
+
+
+def expansion_case(n: int, seed: int, c: int = C, b: int = B, device="cpu"):
+    """(engine, tree, settle's record, logits, value, variance): a planted
+    tree (:func:`planted_tree`: root-expanding lanes, one a finished game;
+    terminal and ongoing leaves) settled by ``settle``, then one evaluated
+    leaf marked as already expanded (a repeated descent's) and another
+    lane's allocator left full; random logits."""
+    eng, tree, loop, _, _ = planted_tree(n, seed, 48, b, c, device)
+    rec = core.make_simulate(eng, stub_evaluator(eng), max_depth=48).phases["settle"](tree, loop)
+    gen = torch.Generator().manual_seed(seed)
+    logits = torch.randn(b, eng.num_actions, generator=gen) * 2
+    v_net, var_net = torch.rand(b, generator=gen) * 2 - 1, torch.rand(b, generator=gen) * 0.1
+    leaves = rec["lane_eval_leaf"].nonzero()[:, 0].tolist()
+    already, full = leaves[-1], leaves[-2]
+    tree.child_node[already, rec["leaf_parent"][already], rec["leaf_slot"][already]] = 1
+    tree.alloc_ptr[full] = tree.free_count[full]
+    return eng, tree, rec, *(x.to(device) for x in (logits, v_net, var_net))
+
+
+def assert_priors_close(got: torch.Tensor, want: torch.Tensor, ulps: int, what: str) -> None:
+    """Non-negative float32 arrays within ``ulps`` units in the last place."""
+    gap = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    assert int(gap.max()) <= ulps, f"{what}: child_prob {int(gap.max())} ulp apart"
+
+
+@pytest.mark.parametrize("n,seed,c", [(4, 1, 32), (5, 4, 32)])
+def test_apply_eval_plain_equals_the_batched_apply_eval(n, seed, c):
+    """Every tree array that ``apply_eval`` touches (the statistics, the
+    new rows, the node pool's states, the links, the counters) bit for bit,
+    the priors within 2 ulp, on lanes that expand their root, evaluate a
+    leaf, evaluate nothing, find their leaf already expanded or their
+    allocator full, and nodes with more legal actions than child slots and
+    with fewer."""
+    eng, tree, rec, logits, v_net, var_net = expansion_case(n, seed, c)
+    apply_eval = core.make_simulate(eng, stub_evaluator(eng)).phases["apply_eval"]
+    ref, plain = clone(tree), clone(tree)
+    apply_eval(ref, rec, logits, v_net, var_net)
+    apply_eval_plain(plain, rec, logits, v_net, var_net, eng, core._kernel_a)
+    assert_priors_close(plain.child_prob, ref.child_prob, 2, "plain")
+    assert_same(plain._replace(child_prob=ref.child_prob), ref, "tree")
+    legal = eng.legal_mask(rec["env_eval"]).sum(-1)
+    evaluated = rec["lane_eval_leaf"] | rec["lane_eval_root"]
+    assert bool((rec["lane_root_expand"] & rec["lane_eval_root"]).any()) and bool((~evaluated).any())
+    assert int(ref.overflow.sum()) == int(tree.overflow.sum()) + 1
+    assert bool((legal[evaluated] > c).any()) and bool((legal[evaluated] <= c).any())
